@@ -1,0 +1,75 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda` and skipped where torch sees no GPU.  On the GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Shapes are small and odd (tile edges inside and outside the image); the
+main-path shapes are checked by chip_smoke.py.  Tolerances as in
+test_torch_fused_noise.py: sap + median and the packed NMS words are
+exact; gaussian + blur may move a u8 by one where logf/cosf round their
+last ulp differently, on at most 1e-3 of the pixels.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    from tpudenoise_torch.eval.harness import set_matmul_precision
+    set_matmul_precision()
+    return torch.device('cuda')
+
+
+SHAPES = [(3, 24, 40), (2, 37, 29), (1, 17, 300)]
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+@pytest.mark.parametrize('dtype', [torch.uint8, torch.float32])
+@pytest.mark.parametrize('double', [True, False])
+def test_fused_kernels_match_plain(dev, shape, dtype, double):
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(sum(shape))
+    im = torch.from_numpy(rng.randint(0, 256, shape + (3,))).to(dtype)
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, shape[0])
+                             .astype(np.int32))
+    sig = torch.from_numpy(np.sqrt(np.asarray([0.1, 1.0, 1.5], np.float32))
+                           [np.arange(shape[0]) % 3])
+    want = fk.fused_sap_median_batched(im, seeds, 0.4, double)
+    got = fk.fused_sap_median_batched(im.to(dev), seeds.to(dev), 0.4, double)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+    for sigmas in (None, sig):
+        want = fk.fused_gaussian_blur(im, seeds, 0.1, double, sigmas=sigmas)
+        got = fk.fused_gaussian_blur(
+            im.to(dev), seeds.to(dev), 0.1, double,
+            sigmas=None if sigmas is None else sigmas.to(dev)).cpu()
+        diff = (got.float() - want.float()).abs()
+        assert diff.max() <= 1
+        assert (diff.amax(-1) > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize('n', [512, 1024, 6144])
+def test_suppression_masks_match_plain(dev, n):
+    from tpudenoise_torch.ops import nms
+    rng = np.random.RandomState(n)
+    xy = rng.uniform(0, 400, (2, n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 120, (2, n, 2))], -1)
+    boxes[:, 1::7] = boxes[:, ::7][:, :boxes[:, 1::7].shape[1]]   # dups
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    want = nms.build_suppression_masks(boxes, 0.7)
+    got = nms.build_suppression_masks_cuda(boxes.to(dev), 0.7).cpu()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_wrappers_refuse_other_devices(dev):
+    from tpudenoise_torch.noise import fused_kernels as fk
+    im = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        fk.fused_sap_median_batched(im, torch.zeros(1, dtype=torch.int32))
