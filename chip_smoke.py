@@ -5,19 +5,30 @@
 Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
-  2. build: nvcc builds the three kernels from tpudenoise_torch/csrc;
+  2. build: nvcc builds the four kernel sources of tpudenoise_torch/csrc
+     (six kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
-     main path's shapes: sap+median (8, 600, 1000, 3) u8 bit-exact,
-     gaussian+blur same shape within max |diff| <= 1 on <= 1e-3 of the
-     pixels, packed NMS masks 8 x 6144 sorted boxes word for word; each
-     timed beside its plain version;
+     main path's shapes, each timed beside its plain version:
+     sap+median (8, 600, 1000, 3) u8 bit-exact; gaussian+blur same shape
+     within max |diff| <= 1 on <= 1e-3 of the pixels; packed NMS masks
+     8 x 6144 sorted boxes word for word; mix noise and mix + bilateral on
+     16 images of 600x1000 whose explicit branches cover all 13 kinds
+     (levels from the var_all table; quant palettes and bloom params from
+     the port's prologue), bit-exact for original, sap, shader, quant,
+     bloom, periodic and brownian, and within a mod-256 distance of 1 on
+     <= 1e-3 of the elements for the kinds that go through log/exp/cos
+     (gaussian's [0, 1] floats within 1e-6); bloom on 8 images bit-exact;
   4. correctness of the whole chunk on a small input: the card's
      detect_chunk (f32) against the same chunk run on the CPU through the
-     plain versions;
+     plain versions, for sap, gauss and noise_mix_var_all_bilateral;
   5. main path: detect_chunk with a seeded-init vgg16 VOC-21 Faster R-CNN
      in bf16 on (8, 600, 1000, 3) u8 frames, bucket (608, 1024), for
-     sap_median_var0.4 and gaussian_gaus_blur_var0.1; 3 warm + 5 timed
-     chunks each; every kernel's launch count must rise.
+     sap_median_var0.4, gaussian_gaus_blur_var0.1,
+     noise_mix_var_all_bilateral, noise_mix_var_all and bloom; 3 warm + 5
+     timed chunks each, chunk i holding images 8i..8i+7 (so each chunk
+     draws its own noise and, for the mixes, its own kinds); the launch
+     counters are zeroed before each path and read after it, and the
+     path's kernels must have launched.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -39,13 +50,31 @@ from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.eval.harness import (detect_chunk, limit_per_image,
                                            set_matmul_precision)
 from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+from tpudenoise_torch.noise import bloom as bl
 from tpudenoise_torch.noise import fused_kernels as fk
+from tpudenoise_torch.noise import mix_kernels as mk
+from tpudenoise_torch.noise.generators import bloom_apply_scan, bloom_params
+from tpudenoise_torch.noise.mix_prologue import (entry_draws, fixed_prologue,
+                                                 plan_tables)
 from tpudenoise_torch.noise.pipeline import make_pipeline
+from tpudenoise_torch.noise.spec import Kind, parse
 from tpudenoise_torch.ops import nms
 
 B, H, W = 8, 600, 1000
 BUCKET = (608, 1024)
-NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1')
+NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
+          'noise_mix_var_all_bilateral', 'noise_mix_var_all', 'bloom')
+SMALL_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
+                'noise_mix_var_all_bilateral')
+SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom')
+# one image per kind, levels from the var_all table, then brownian,
+# periodic and quant at a second level: (Kind value, level)
+MIX_ENTRIES = [(0, 0.0), (1, 1.0), (2, 0.0), (3, 0.8), (4, 2.0), (5, 7.0),
+               (6, 1.2), (7, 0.9), (8, 100.0), (9, 0.2), (10, 0.3),
+               (11, 0.0), (12, 0.0), (7, 0.009), (8, -1.0), (5, 10.0)]
+# kinds through logf/expf/cosf: gaussian, poisson, speckle, uniform,
+# gamma, rayleigh (their bound is stated; the rest must be bit-exact)
+TRANSCENDENTAL = {1, 2, 4, 6, 9, 10}
 
 
 def log(*a):
@@ -201,6 +230,72 @@ def check_kernels(dev) -> list:
     return rows
 
 
+def _mix_errors(got, want):
+    """Per-entry (max distance, changed share) of kernel against plain:
+    mod-256 distance for the wrapped kinds, absolute for gaussian's
+    floats (scaled by 1e6, so the bound reads 1 for both)."""
+    out = []
+    for i, (kind, _) in enumerate(MIX_ENTRIES):
+        d = (got[i] - want[i]).abs()
+        if kind in TRANSCENDENTAL:
+            d = d * 1e6 if kind == 1 else torch.minimum(d, 256.0 - d)
+        out.append((kind, d.max().item(), (d > 0).double().mean().item()))
+    return out
+
+
+def check_mix_kernels(dev) -> list:
+    """Kernels 6-8 at full width against their plain versions."""
+    rng = np.random.RandomState(5)
+    n = len(MIX_ENTRIES)
+    raw = torch.from_numpy(rng.randint(0, 256, (n, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    keys = prng.split(prng.PRNGKey(5), n)
+    kinds, *args = fixed_prologue(keys, raw, MIX_ENTRIES)
+    rows = []
+    for name, fn, plain, line in (
+            ('fused_mix_noise', mk.fused_mix_noise, mk.fused_mix_noise_plain,
+             'tpudenoise/noise/pallas_mix.py:521'),
+            ('fused_mix_bilateral', mk.fused_mix_bilateral,
+             mk.fused_mix_bilateral_plain,
+             'tpudenoise/noise/pallas_mix.py:598')):
+        got = fn(raw, *args, kinds)
+        torch.cuda.synchronize()
+        want = plain(raw, *args, kinds)
+        errs = _mix_errors(got, want)
+        log(f'kernel {name}: (kind, max dist, changed share) '
+            + ' '.join(f'({k}, {m:g}, {s:.2e})' for k, m, s in errs)
+            + ' (bound: 0 for kinds 0,3,5,7,8,11,12; dist 1 on 1e-3 for '
+            'kinds 1,2,4,6,9,10)')
+        for kind, m, share in errs:
+            if (m > 0 if kind not in TRANSCENDENTAL
+                    else m > 1 or share > 1e-3):
+                raise AssertionError(f'{name}: kind {kind} outside its '
+                                     f'bound ({m}, {share})')
+        rows.append(dict(
+            name=name, route='cuda',
+            source='tpudenoise_torch/csrc/mix_noise.cu', replaces=line,
+            max_abs_err=(got - want).abs().max().item(),
+            ms=time_ms(lambda: fn(raw, *args, kinds), 10),
+            plain_ms=time_ms(lambda: plain(raw, *args, kinds), 2, 1)))
+
+    img = raw[:B]
+    params = torch.from_numpy(bloom_params(prng.split(prng.PRNGKey(6), B),
+                                           H, W)).to(dev)
+    got = bl.bloom_batched(img, params)
+    torch.cuda.synchronize()
+    err = (got - bloom_apply_scan(img, params)).abs().max().item()
+    log(f'kernel bloom: max |diff| {err} (bit-exact required)')
+    if err != 0:
+        raise AssertionError('bloom kernel differs from its plain version')
+    rows.append(dict(
+        name='bloom_batched', route='cuda',
+        source='tpudenoise_torch/csrc/bloom.cu',
+        replaces='tpudenoise/noise/pallas_bloom.py:29', max_abs_err=err,
+        ms=time_ms(lambda: bl.bloom_batched(img, params), 20),
+        plain_ms=time_ms(lambda: bloom_apply_scan(img, params), 3, 1)))
+    return rows
+
+
 def _dets(boxes, scores, mask, i, c):
     """(K, 5) kept detections of image i, class c."""
     m = mask[i, c]
@@ -221,12 +316,12 @@ def check_small_chunk(dev):
     for d in ('cpu', dev):
         model.to(d)
         p = {k: v.to(d) for k, v in params.items()}
-        for noise in NOISES:
+        for noise in SMALL_NOISES:
             out = detect_chunk(model, p, prng.PRNGKey(3), [0, 1],
                                raw.to(d), geom.to(d), geom[:, 2:].to(d),
                                make_pipeline(noise), bucket)
             res[d, noise] = [t.cpu().numpy() for t in out]
-    for noise in NOISES:
+    for noise in SMALL_NOISES:
         (cb, cs, cm), (gb, gs, gm) = res['cpu', noise], res[dev, noise]
         matched = total = 0
         for i in range(2):
@@ -246,6 +341,37 @@ def check_small_chunk(dev):
             raise AssertionError(f'{noise}: card and CPU chunks disagree')
 
 
+COUNTERS = (fk.launches, nms.launches, mk.launches, bl.launches)
+MASKS = 'build_suppression_masks_cuda'
+# the kernels each main path must launch
+PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched', MASKS),
+                'gaussian_gaus_blur_var0.1': ('fused_gaussian_blur', MASKS),
+                'noise_mix_var_all_bilateral': ('fused_mix_bilateral', MASKS),
+                'noise_mix_var_all': ('fused_mix_noise', MASKS),
+                'bloom': ('bloom_batched', MASKS)}
+
+
+def launch_counts() -> dict:
+    return {'fused_sap_median_batched': fk.launches['sap_median'],
+            'fused_gaussian_blur': fk.launches['gauss_blur'],
+            MASKS: nms.launches['suppression_masks'],
+            'fused_mix_noise': mk.launches['mix_noise'],
+            'fused_mix_bilateral': mk.launches['mix_bilateral'],
+            'bloom_batched': bl.launches['bloom']}
+
+
+def kinds_drawn(noise: str, key, idx) -> dict:
+    """How many of the images idx draw each kind of a mixed plan."""
+    plan = parse(noise)
+    if len(plan.specs) < 2:
+        return {}
+    kinds, eb, el = plan_tables(plan.specs)
+    keys = prng.split(prng.fold_in(key, np.asarray(idx)), 1)[:, 0]
+    pos = entry_draws(keys, eb, el)[0]
+    names = [Kind(kinds[p]).name.lower() for p in pos]
+    return {n: names.count(n) for n in sorted(set(names))}
+
+
 def main_path(dev, card: str) -> dict:
     cfg = default_config()
     model = FasterRCNN('vgg16', num_classes=21, cfg=cfg)
@@ -258,16 +384,18 @@ def main_path(dev, card: str) -> dict:
     geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=dev)
     infos = geom[:, 2:].contiguous()
     key = prng.PRNGKey(cfg.RNG_SEED)
-    idx = list(range(B))
     stages = ('noise', 'prep', 'forward', 'postprocess')
     result = {}
-    for counter in (fk.launches, nms.launches):
-        for k in counter:
-            counter[k] = 0
     for noise in NOISES:
         noise_fn = make_pipeline(noise)
         walls, per_stage = [], {s: [] for s in stages}
+        for counter in COUNTERS:
+            for k in counter:
+                counter[k] = 0
         for it in range(8):
+            # chunk `it` holds images 8*it .. 8*it+7, so each chunk draws
+            # its own noise (and, for the mixes, its own kinds)
+            idx = list(range(B * it, B * it + B))
             events = [torch.cuda.Event(enable_timing=True)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -286,25 +414,38 @@ def main_path(dev, card: str) -> dict:
                 walls.append(time.perf_counter() - t0)
                 for s, a, b in zip(stages, events, events[1:]):
                     per_stage[s].append(a.elapsed_time(b))
-        bx, sc, mk = (t.cpu().numpy() for t in (boxes, scores, mask))
+        counts = launch_counts()
+        missing = [k for k in PATH_KERNELS[noise] if not counts[k]]
+        if missing:
+            raise AssertionError(f'{noise}: the main path did not launch '
+                                 f'{missing} ({counts})')
+        bx, sc, kept = (t.cpu().numpy() for t in (boxes, scores, mask))
         assert bx.shape == (B, 20, 100, 4), bx.shape
-        if not (np.isfinite(bx).all() and np.isfinite(sc[mk]).all()):
+        if not (np.isfinite(bx).all() and np.isfinite(sc[kept]).all()):
             raise AssertionError(f'{noise}: non-finite detections')
-        if not mk.any():
+        if not kept.any():
             raise AssertionError(f'{noise}: no detections kept')
         for j in range(B):
-            if limit_per_image(bx[j], sc[j], mk[j], 100).sum() > 100:
+            if limit_per_image(bx[j], sc[j], kept[j], 100).sum() > 100:
                 raise AssertionError('limit_per_image did not cap at 100')
         med = statistics.median(walls)
-        result[noise] = dict(img_per_s=B / med, chunk_ms=med * 1e3,
-                             stage_ms={s: statistics.median(v)
-                                       for s, v in per_stage.items()},
-                             kept_per_image=float(mk.sum() / B))
+        result[noise] = dict(
+            img_per_s=B / med, img_per_s_mean=B * len(walls) / sum(walls),
+            chunk_ms=med * 1e3,
+            stage_ms={s: statistics.median(v) for s, v in per_stage.items()},
+            kept_per_image=float(kept.sum() / B),
+            launches={k: counts[k] for k in PATH_KERNELS[noise]},
+            kinds_timed=kinds_drawn(noise, key, range(3 * B, 8 * B)))
         log(f'main path {noise}: {B / med:.1f} img/s (median of 5 chunks, '
-            f'{med * 1e3:.2f} ms/chunk of {B}); stages ms: '
+            f'{med * 1e3:.2f} ms/chunk of {B}; mean '
+            f'{result[noise]["img_per_s_mean"]:.1f} img/s); stages ms: '
             + ', '.join(f'{s} {v:.2f}'
                         for s, v in result[noise]['stage_ms'].items())
-            + f'; {mk.sum() / B:.1f} kept/image  [{card}]')
+            + f'; {kept.sum() / B:.1f} kept/image; launches '
+            f'{json.dumps(result[noise]["launches"])}'
+            + (f'; kinds in the timed chunks '
+               f'{json.dumps(result[noise]["kinds_timed"])}'
+               if result[noise]['kinds_timed'] else '') + f'  [{card}]')
     return result
 
 
@@ -321,26 +462,21 @@ def main() -> int:
     log(f'card: {card}')
 
     t0 = time.perf_counter()
-    for name in ('fused_noise', 'nms_mask'):
-        cuda_build.library(name)
+    cuda_build.build(SOURCES)
     log(f'build: {time.perf_counter() - t0:.1f} s '
         f'(nvcc: {json.dumps(cuda_build.build_seconds)})')
 
-    rows = check_kernels(dev)
+    rows = check_kernels(dev) + check_mix_kernels(dev)
     check_small_chunk(dev)
     e2e = main_path(dev, card)
-    counts = {'fused_sap_median_batched': fk.launches['sap_median'],
-              'fused_gaussian_blur': fk.launches['gauss_blur'],
-              'build_suppression_masks_cuda':
-                  nms.launches['suppression_masks']}
-    log(f'main-path launches: {json.dumps(counts)}')
+    # each kernel's launches, summed over the main paths that run it
     for r in rows:
-        r['launches'] = counts[r['name']]
+        r['launches'] = sum(p['launches'].get(r['name'], 0)
+                            for p in e2e.values())
         log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
-            f" ms  [{card}]")
-    if not all(counts.values()):
-        raise AssertionError(f'a kernel was not launched on the main path: '
-                             f'{counts}')
+            f" ms, {r['launches']} main-path launches  [{card}]")
+    if not all(r['launches'] for r in rows):
+        raise AssertionError('a kernel was not launched on the main path')
     log(json.dumps({'main_path': e2e, 'card': card}))
     print(json.dumps({'kernels': rows}))
     print(card)

@@ -156,7 +156,9 @@ def test_pipeline_keyed_matches_jax(pallas_interpret, noise, f32_input):
 
 
 def test_other_plans_raise():
-    for noise in ('original', 'sap_var0.4', 'bilateral', 'mix_var_low',
-                  'gaussian_median_var0.1', 'speckle_median_var1.0'):
+    for noise in ('original', 'sap_var0.4', 'bilateral',
+                  'noise_mix_var_low_wavelet', 'gaussian_median_var0.1',
+                  'speckle_median_var1.0', 'speckle_bilateral_var1.0',
+                  'bloom_median'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             make_pipeline(noise)

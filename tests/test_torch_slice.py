@@ -10,9 +10,13 @@ batched-eval parity test is: every JAX detection has a port twin within
 0.5 px (and score) in >= 95% of cases, and the count per (class, image)
 differs by at most one.
 
+The mixed plan adds the quant palette (k-means centres within a few ulps
+of the reference's, so a near-tie pixel can map to another colour) and
+brownian's other summation order; both stay far inside that bound.
+
 Also: the port imports neither jax nor flax (checked in a subprocess where
-both are blocked), and its only tpudenoise imports are the four jax-free
-modules."""
+both are blocked, running all four noise plans), and its only tpudenoise
+imports are the four jax-free modules."""
 
 import functools
 import os
@@ -48,12 +52,15 @@ def env(tmp_path_factory):
 
 
 @pytest.mark.parametrize('noise', ['sap_median_var0.4',
-                                   'gaussian_gaus_blur_var0.1'])
+                                   'gaussian_gaus_blur_var0.1',
+                                   'noise_mix_var_medium', 'bloom'])
 def test_slice_matches_jax(env, noise, monkeypatch):
     import jax
     import jax.numpy as jnp
     import tpudenoise.eval.harness as jharness
+    import tpudenoise.noise.pallas_bloom as pb
     import tpudenoise.noise.pallas_kernels as pk
+    import tpudenoise.noise.pallas_mix as pm
     from tpudenoise.data.voc_like import rrData
     from tpudenoise.models.faster_rcnn import FasterRCNN as JRCNN
     from tpudenoise.noise.pipeline import make_pipeline as jax_make_pipeline
@@ -66,6 +73,12 @@ def test_slice_matches_jax(env, noise, monkeypatch):
     for name in ('fused_sap_median_batched', 'fused_gaussian_blur'):
         monkeypatch.setattr(pk, name, functools.partial(
             getattr(pk, name), interpret=True))
+    monkeypatch.setattr(pb, 'bloom_pallas', functools.partial(
+        pb.bloom_pallas, interpret=True))
+    # the mix pipeline passes its own interpret flag: force the keyword
+    fn = pm.fused_mix_noise
+    monkeypatch.setattr(pm, 'fused_mix_noise', lambda *a, **k: fn(
+        *a, **{**k, 'interpret': True}))
     monkeypatch.setattr(jharness, 'make_pipeline', functools.partial(
         jax_make_pipeline, use_pallas=True))
 
@@ -74,7 +87,7 @@ def test_slice_matches_jax(env, noise, monkeypatch):
     tm = FasterRCNN('vgg16', num_classes=2, cfg=tc, dtype=torch.float32)
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
 
-    tag = noise.split('_')[0]
+    tag = noise
     d1 = rrData('test', '2021', config=jc)
     d1.competition_mode(True)
     jharness.test_net_batched(jm, jp, d1, 'jax_' + tag, noise, eval_batch=3,
@@ -126,7 +139,8 @@ def test_port_imports_no_jax_and_runs_detect_chunk():
         raw = torch.from_numpy(np.random.RandomState(3).randint(
             0, 256, (2, 40, 56, 3)).astype(np.uint8))
         geom = torch.tensor([[40, 56, 40, 56, 1.0]] * 2)
-        for noise in ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1'):
+        for noise in ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
+                      'noise_mix_var_medium', 'bloom'):
             boxes, scores, mask = harness.detect_chunk(
                 model, params, prng.PRNGKey(3), [0, 1], raw, geom,
                 geom[:, 2:], make_pipeline(noise), (48, 64))

@@ -4,7 +4,8 @@ ctypes.
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
 a build takes seconds) and compiles to its own shared library under
 `build/tpudenoise_torch/<name>-<hash>/` at the repository root, keyed by a
-hash of the source and the flags.  The flags are fixed:
+hash of the source, the headers of `csrc/` and the flags.  The flags are
+fixed:
 
 * `-gencode arch=compute_90a,code=sm_90a` (Hopper);
 * `--fmad=false`: XLA on the CPU does not contract `a*b+c`, and the
@@ -18,6 +19,7 @@ Every C entry takes pointers and the stream as `void*` and returns
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import os.path as osp
@@ -26,6 +28,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -36,6 +39,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 
 _libs: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.Lock] = {}
 _lock = threading.Lock()
 build_seconds: dict[str, float] = {}
 
@@ -48,15 +52,27 @@ def _nvcc() -> str:
                        'GPU machine (PATH or /usr/local/cuda/bin)')
 
 
+def build(names) -> None:
+    """Build and load several sources at once: one nvcc process each, all
+    running together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(library, names))
+
+
 def library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load `csrc/<name>.cu`."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = osp.join(CSRC, name + '.cu')
-        with open(src, 'rb') as f:
-            digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
+        # the headers of csrc/ count too: a source may include them
+        h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+        for path in [src] + sorted(glob.glob(osp.join(CSRC, '*.cuh'))):
+            with open(path, 'rb') as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         out_dir = osp.join(BUILD_ROOT, f'{name}-{digest}')
         so = osp.join(out_dir, f'lib{name}.so')
         if not osp.exists(so):

@@ -91,7 +91,7 @@ def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor,
     Returns per-class boxes, scores and mask, (B, C-1, max_per_image, ...).
     """
     mark = on_stage or (lambda name: None)
-    keys = np.stack([prng.fold_in(key, int(i)) for i in idx])
+    keys = prng.fold_in(key, np.asarray(idx))
     noisy = noise_fn.keyed(keys, raw_u8)
     mark('noise')
     imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
