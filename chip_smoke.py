@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
-  2. build: nvcc builds the four kernel sources of tpudenoise_torch/csrc
-     (six kernels), one nvcc process each, all at once;
+  2. build: nvcc builds the six kernel sources of tpudenoise_torch/csrc
+     (nine kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
      sap+median (8, 600, 1000, 3) u8 bit-exact; gaussian+blur same shape
@@ -18,19 +18,32 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      bloom, periodic and brownian, and within a mod-256 distance of 1 on
      <= 1e-3 of the elements for the kinds that go through log/exp/cos
      (gaussian's [0, 1] floats within 1e-6); bloom on 8 images bit-exact;
+     the standalone bilateral (8, 600, 1000, 3) f32 bit-exact; the
+     per-image sap + median entry on the same shape bit-exact; the
+     threefry fields for 8 keys x 1.8M elements: bits and uniforms
+     bit-exact, normals within 2 ulp;
   4. correctness of the whole chunk on a small input: the card's
      detect_chunk (f32) against the same chunk run on the CPU through the
-     plain versions, for sap, gauss and noise_mix_var_all_bilateral;
+     plain versions, for sap, gauss, noise_mix_var_all_bilateral,
+     speckle_bilateral_var1.0, uniform_mean_var0.6 and quant_var10;
   5. main path: detect_chunk with a seeded-init vgg16 VOC-21 Faster R-CNN
      in bf16 on (8, 600, 1000, 3) u8 frames, bucket (608, 1024), for
      sap_median_var0.4, gaussian_gaus_blur_var0.1,
-     noise_mix_var_all_bilateral, noise_mix_var_all and bloom; 3 warm + 5
-     timed chunks each, chunk i holding images 8i..8i+7 (so each chunk
-     draws its own noise and, for the mixes, its own kinds); the launch
-     counters are zeroed before each path and read after it, and the
-     path's kernels must have launched.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+     noise_mix_var_all_bilateral, noise_mix_var_all, bloom,
+     speckle_bilateral_var1.0 and poisson; 3 warm + 5 timed chunks each,
+     chunk i holding images 8i..8i+7 (so each chunk draws its own noise
+     and, for the mixes, its own kinds); the launch counters are zeroed
+     before each path and read after it, and the path's kernels must have
+     launched; then the per-image sap + median entry's own path on the
+     sap chunk's images and seeds, equal to the batched kernel's result;
+  6. where the time goes: two chunks of each string under torch.profiler
+     (device kernel time, idle share, the port's own kernels' share).
+Each kernel's row carries its bound: the larger of the bytes it must move
+over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
+rate; integer and transcendental operations counted one each, from the
+plain version's per-element operations).  The line before the last is
+the card's name and power limit, the one before that the kernel table as
+JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ import torch
 from tpudenoise_torch import cuda_build
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import default_config
+from tpudenoise_torch.denoise import bilateral as bil
 from tpudenoise_torch.eval.harness import (detect_chunk, limit_per_image,
                                            set_matmul_precision)
 from tpudenoise_torch.models.faster_rcnn import FasterRCNN
@@ -63,10 +77,26 @@ from tpudenoise_torch.ops import nms
 B, H, W = 8, 600, 1000
 BUCKET = (608, 1024)
 NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
-          'noise_mix_var_all_bilateral', 'noise_mix_var_all', 'bloom')
+          'noise_mix_var_all_bilateral', 'noise_mix_var_all', 'bloom',
+          'speckle_bilateral_var1.0', 'poisson')
 SMALL_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
-                'noise_mix_var_all_bilateral')
-SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom')
+                'noise_mix_var_all_bilateral', 'speckle_bilateral_var1.0',
+                'uniform_mean_var0.6', 'quant_var10')
+SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
+           'threefry')
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+# operations per element (one of B*H*W*3), counted from each plain
+# version, a transcendental as one: hash 15, compare/select 4, a 3x3
+# median pass 16, a [1,2,1] blur pass 12, Box-Muller 12, the 49-tap
+# bilateral 312 (937 per pixel), a 48-step bloom composite 430, a
+# threefry word 78 (+4 for a uniform, +22 for erf_inv)
+OPS = {'sap_median': 15 + 4 + 2 * 16, 'gauss_blur': 2 * 15 + 12 + 6 + 2 * 12,
+       'bilateral': 312, 'bloom': 430, 'bits': 78, 'uniform': 82,
+       'normal': 104}
+# mix kernels, by kind (Kind value): the kind's generator per element
+MIX_OPS = {0: 0, 1: 45, 2: 330, 3: 20, 4: 47, 5: 110, 6: 22, 7: 60, 8: 8,
+           9: 300, 10: 25, 11: 430, 12: 6}
 # one image per kind, levels from the var_all table, then brownian,
 # periodic and quant at a second level: (Kind value, level)
 MIX_ENTRIES = [(0, 0.0), (1, 1.0), (2, 0.0), (3, 0.8), (4, 2.0), (5, 7.0),
@@ -79,6 +109,16 @@ TRANSCENDENTAL = {1, 2, 4, 6, 9, 10}
 
 def log(*a):
     print(*a, flush=True)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the non-tensor rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                # no single PyTorch call computes any of these functions
+                library_ms=None)
 
 
 def card_line() -> str:
@@ -183,7 +223,8 @@ def check_kernels(dev) -> list:
         ms=time_ms(lambda: fk.fused_sap_median_batched(raw, seeds, 0.4,
                                                        True), 20),
         plain_ms=time_ms(lambda: fk.fused_sap_median_plain(raw, seeds, 0.4,
-                                                           True), 3, 1)))
+                                                           True), 3, 1),
+        **bound(2 * raw.numel(), OPS['sap_median'] * raw.numel())))
 
     # kernel 2: per-image sigma from the three levels
     lv = np.sqrt(np.asarray([0.1, 1.0, 1.5], np.float32))
@@ -206,7 +247,8 @@ def check_kernels(dev) -> list:
         ms=time_ms(lambda: fk.fused_gaussian_blur(raw, seeds, 0.1, True,
                                                   sigmas=sig), 20),
         plain_ms=time_ms(lambda: fk.fused_gaussian_blur_plain(
-            raw, seeds, 0.1, True, sigmas=sig), 3, 1)))
+            raw, seeds, 0.1, True, sigmas=sig), 3, 1),
+        **bound(2 * raw.numel(), OPS['gauss_blur'] * raw.numel())))
 
     # kernel 3: word for word at the TEST budget (6000 -> 6144)
     boxes = torch.from_numpy(nms_boxes(rng, B, 6144)).to(dev)
@@ -226,8 +268,93 @@ def check_kernels(dev) -> list:
         replaces='tpudenoise/ops/nms.py:234', max_abs_err=float(err),
         ms=time_ms(lambda: nms.build_suppression_masks_cuda(boxes, 0.7), 20),
         plain_ms=time_ms(lambda: nms.build_suppression_masks(boxes, 0.7),
-                         3, 1)))
+                         3, 1),
+        # 512 x 512 tiles on or above the diagonal, ~15 operations per
+        # pair; the boxes read, the words written
+        **bound(boxes.numel() * 4 + got.numel() * 4,
+                15 * B * 512 * 512 * (lambda t: t * (t + 1) // 2)(
+                    -(-boxes.shape[1] // 512)))))
+
+    # kernel 4: the per-image entry of kernel 1 (f32 I/O), bit-exact
+    img = raw.to(torch.float32)
+    got = fk.fused_sap_median(img, seeds, 0.4, True)
+    torch.cuda.synchronize()
+    err = (got - fk.fused_sap_median_plain(img, seeds, 0.4, True)).abs(
+    ).max().item()
+    log(f'kernel sap_median (per image): max |diff| {err} (bit-exact '
+        f'required)')
+    if err != 0:
+        raise AssertionError('per-image sap_median differs from its plain '
+                             'version')
+    rows.append(dict(
+        name='fused_sap_median', route='cuda',
+        source='tpudenoise_torch/csrc/fused_noise.cu',
+        replaces='tpudenoise/noise/pallas_kernels.py:339',
+        max_abs_err=float(err),
+        ms=time_ms(lambda: fk.fused_sap_median(img, seeds, 0.4, True), 20),
+        plain_ms=time_ms(lambda: fk.fused_sap_median_plain(img, seeds, 0.4,
+                                                           True), 3, 1),
+        **bound(8 * img.numel(), OPS['sap_median'] * img.numel())))
+
+    # kernel 5: the standalone bilateral, bit-exact, on u8-domain floats
+    # with a zero band (as clipped noise makes)
+    img[:, :, :7] = 0.0
+    got = bil.bilateral_batched(img)
+    torch.cuda.synchronize()
+    err = (got - bil.bilateral_plain(img)).abs().max().item()
+    log(f'kernel bilateral: max |diff| {err} (bit-exact required)')
+    if err != 0:
+        raise AssertionError('bilateral kernel differs from its plain '
+                             'version')
+    rows.append(dict(
+        name='bilateral_batched', route='cuda',
+        source='tpudenoise_torch/csrc/bilateral.cu',
+        replaces='tpudenoise/denoise/pallas_bilateral.py:138',
+        max_abs_err=float(err),
+        ms=time_ms(lambda: bil.bilateral_batched(img), 20),
+        plain_ms=time_ms(lambda: bil.bilateral_plain(img), 3, 1),
+        **bound(8 * img.numel(), OPS['bilateral'] * img.numel())))
     return rows
+
+
+def check_threefry(dev) -> list:
+    """The threefry fields of the main path (8 keys x 1.8M elements)
+    against the plain version on the card: bits and uniforms bit-exact,
+    normals within 2 ulp; timed as the speckle draw (normals)."""
+    n = H * W * 3
+    keys = torch.from_numpy(prng.split(prng.PRNGKey(11), B).astype(
+        np.int64)).to(dev)
+    worst = 0
+    for mode, lo, span in (('bits', 0.0, 1.0), ('uniform', 0.0, 1.0),
+                           ('normal', 0.0, 1.0)):
+        scale = float(prng._SQRT2)
+        got = prng.threefry_draw(keys, n, mode, lo, span, scale)
+        want = prng.threefry_draw_plain(keys, n, mode, lo, span, scale)
+        torch.cuda.synchronize()
+        ulp = (got.view(torch.int32).long()
+               - want.view(torch.int32).long()).abs()
+        m = ulp.max().item()
+        log(f'kernel threefry {mode}: max {m} ulp, '
+            f'{(ulp > 0).double().mean().item():.2e} differ (bound: 0 for '
+            f'bits and uniforms, 2 ulp for normals)')
+        if m > (2 if mode == 'normal' else 0):
+            raise AssertionError(f'threefry {mode} outside its bound')
+        worst = max(worst, (got - want).abs().max().item()
+                    if mode == 'normal' else 0.0)
+    bits_cpu = prng.threefry_draw(keys[:1].cpu(), 4096, 'bits')
+    if not torch.equal(bits_cpu, prng.threefry_draw(keys[:1], 4096,
+                                                    'bits').cpu()):
+        raise AssertionError('threefry bits differ between card and CPU')
+    draw = (lambda: prng.threefry_draw(keys, n, 'normal', 0.0, 1.0,
+                                       float(prng._SQRT2)))
+    return [dict(
+        name='threefry_draw', route='cuda',
+        source='tpudenoise_torch/csrc/threefry.cu',
+        replaces='tpudenoise/noise/generators.py:140',
+        max_abs_err=worst, ms=time_ms(draw, 20),
+        plain_ms=time_ms(lambda: prng.threefry_draw_plain(
+            keys, n, 'normal', 0.0, 1.0, float(prng._SQRT2)), 3, 1),
+        **bound(4 * B * n, OPS['normal'] * B * n))]
 
 
 def _mix_errors(got, want):
@@ -276,7 +403,10 @@ def check_mix_kernels(dev) -> list:
             source='tpudenoise_torch/csrc/mix_noise.cu', replaces=line,
             max_abs_err=(got - want).abs().max().item(),
             ms=time_ms(lambda: fn(raw, *args, kinds), 10),
-            plain_ms=time_ms(lambda: plain(raw, *args, kinds), 2, 1)))
+            plain_ms=time_ms(lambda: plain(raw, *args, kinds), 2, 1),
+            **bound(5 * raw.numel(), H * W * 3 * sum(
+                MIX_OPS[k] + (OPS['bilateral'] if 'bilateral' in name
+                              else 0) for k, _ in MIX_ENTRIES))))
 
     img = raw[:B]
     params = torch.from_numpy(bloom_params(prng.split(prng.PRNGKey(6), B),
@@ -292,7 +422,8 @@ def check_mix_kernels(dev) -> list:
         source='tpudenoise_torch/csrc/bloom.cu',
         replaces='tpudenoise/noise/pallas_bloom.py:29', max_abs_err=err,
         ms=time_ms(lambda: bl.bloom_batched(img, params), 20),
-        plain_ms=time_ms(lambda: bloom_apply_scan(img, params), 3, 1)))
+        plain_ms=time_ms(lambda: bloom_apply_scan(img, params), 3, 1),
+        **bound(5 * img.numel(), OPS['bloom'] * img.numel())))
     return rows
 
 
@@ -341,23 +472,37 @@ def check_small_chunk(dev):
             raise AssertionError(f'{noise}: card and CPU chunks disagree')
 
 
-COUNTERS = (fk.launches, nms.launches, mk.launches, bl.launches)
+COUNTERS = (fk.launches, nms.launches, mk.launches, bl.launches,
+            bil.launches, prng.launches)
 MASKS = 'build_suppression_masks_cuda'
 # the kernels each main path must launch
 PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched', MASKS),
                 'gaussian_gaus_blur_var0.1': ('fused_gaussian_blur', MASKS),
                 'noise_mix_var_all_bilateral': ('fused_mix_bilateral', MASKS),
                 'noise_mix_var_all': ('fused_mix_noise', MASKS),
-                'bloom': ('bloom_batched', MASKS)}
+                'bloom': ('bloom_batched', MASKS),
+                'speckle_bilateral_var1.0': ('threefry_draw',
+                                             'bilateral_batched', MASKS),
+                'poisson': ('threefry_draw', MASKS)}
+ENTRY_PATH = 'fused_sap_median entry'
+
+
+def zero_counts():
+    for counter in COUNTERS:
+        for k in counter:
+            counter[k] = 0
 
 
 def launch_counts() -> dict:
     return {'fused_sap_median_batched': fk.launches['sap_median'],
             'fused_gaussian_blur': fk.launches['gauss_blur'],
+            'fused_sap_median': fk.launches['sap_median_image'],
             MASKS: nms.launches['suppression_masks'],
             'fused_mix_noise': mk.launches['mix_noise'],
             'fused_mix_bilateral': mk.launches['mix_bilateral'],
-            'bloom_batched': bl.launches['bloom']}
+            'bloom_batched': bl.launches['bloom'],
+            'bilateral_batched': bil.launches['bilateral'],
+            'threefry_draw': prng.launches['threefry']}
 
 
 def kinds_drawn(noise: str, key, idx) -> dict:
@@ -372,7 +517,9 @@ def kinds_drawn(noise: str, key, idx) -> dict:
     return {n: names.count(n) for n in sorted(set(names))}
 
 
-def main_path(dev, card: str) -> dict:
+def chunk_inputs(dev):
+    """The main path's model (seeded vgg16 VOC-21, bf16), its params, the
+    (8, 600, 1000, 3) u8 frames, their geometry and the eval key."""
     cfg = default_config()
     model = FasterRCNN('vgg16', num_classes=21, cfg=cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -382,16 +529,18 @@ def main_path(dev, card: str) -> dict:
     raw = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(
         np.uint8)).to(dev)
     geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=dev)
-    infos = geom[:, 2:].contiguous()
-    key = prng.PRNGKey(cfg.RNG_SEED)
+    return model, params, raw, geom, geom[:, 2:].contiguous(), prng.PRNGKey(
+        cfg.RNG_SEED)
+
+
+def main_path(inputs, card: str) -> dict:
+    model, params, raw, geom, infos, key = inputs
     stages = ('noise', 'prep', 'forward', 'postprocess')
     result = {}
     for noise in NOISES:
         noise_fn = make_pipeline(noise)
         walls, per_stage = [], {s: [] for s in stages}
-        for counter in COUNTERS:
-            for k in counter:
-                counter[k] = 0
+        zero_counts()
         for it in range(8):
             # chunk `it` holds images 8*it .. 8*it+7, so each chunk draws
             # its own noise (and, for the mixes, its own kinds)
@@ -446,7 +595,82 @@ def main_path(dev, card: str) -> dict:
             + (f'; kinds in the timed chunks '
                f'{json.dumps(result[noise]["kinds_timed"])}'
                if result[noise]['kinds_timed'] else '') + f'  [{card}]')
+    result[ENTRY_PATH] = entry_path(raw, key)
     return result
+
+
+def entry_path(raw, key) -> dict:
+    """Kernel 4's own path: the per-image entry `fused_sap_median` on the
+    first sap chunk's images and seeds (drawn as the sap pipeline draws
+    them), counters zeroed before and read after; its output must equal
+    the batched kernel's."""
+    keys = prng.fold_in(key, np.arange(B))
+    seeds = torch.from_numpy(prng.randint(keys, (1,), 0, 2**31 - 1)[:, 0]
+                             ).to(raw.device)
+    img = raw.to(torch.float32)
+    zero_counts()
+    out = fk.fused_sap_median(img, seeds, 0.4, True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not counts['fused_sap_median']:
+        raise AssertionError('the per-image entry did not launch its kernel')
+    if not torch.equal(out, fk.fused_sap_median_batched(img, seeds, 0.4,
+                                                        True)):
+        raise AssertionError('the per-image entry differs from the batched '
+                             'kernel')
+    log(f'{ENTRY_PATH}: {counts["fused_sap_median"]} launches for {B} '
+        f'images, equal to the batched kernel')
+    return dict(launches={'fused_sap_median': counts['fused_sap_median']})
+
+
+# symbols of the port's own kernels (csrc/*.cu), as the profiler names them
+OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
+               'mix_noise_kernel', 'mix_bilateral_kernel', 'brownian_',
+               'bloom_kernel', 'bilateral_kernel', 'threefry_kernel')
+
+
+def profile_paths(inputs, card: str) -> dict:
+    """Where a chunk's device time goes: for each noise string, one warm
+    chunk, then 2 chunks (images 24-39) under torch.profiler.  Reports per
+    chunk the wall time (the profiler's own cost included), the device
+    kernel time, the device's idle share of the wall time, the port's own
+    kernels' time and the largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    model, params, raw, geom, infos, key = inputs
+    out = {}
+    for noise in NOISES:
+        fn = make_pipeline(noise)
+
+        def chunk(it):
+            detect_chunk(model, params, key, list(range(B * it, B * it + B)),
+                         raw, geom, infos, fn, BUCKET)
+
+        chunk(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for it in (3, 4):
+                chunk(it)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 2 * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type.name == 'CUDA' and e.self_device_time_total]
+        busy = sum(e.self_device_time_total for e in kern) / 2e3
+        own = sum(e.self_device_time_total for e in kern
+                  if any(k in e.key for k in OWN_KERNELS)) / 2e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        out[noise] = dict(
+            wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
+            own_kernels_ms=own, kernel_names=len(kern),
+            top=[(e.key[:90], e.self_device_time_total / 2e3, e.count // 2)
+                 for e in top])
+        log(f'profile {noise}: chunk {wall:.2f} ms, device {busy:.2f} ms, '
+            f'idle {1.0 - busy / wall:.1%}, port kernels {own:.3f} ms; top '
+            f'(name, ms/chunk, calls): '
+            + '; '.join(f'{k} {t:.3f} x{c}' for k, t, c in out[noise]['top'])
+            + f'  [{card}]')
+    return out
 
 
 def main() -> int:
@@ -466,18 +690,21 @@ def main() -> int:
     log(f'build: {time.perf_counter() - t0:.1f} s '
         f'(nvcc: {json.dumps(cuda_build.build_seconds)})')
 
-    rows = check_kernels(dev) + check_mix_kernels(dev)
+    rows = check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
     check_small_chunk(dev)
-    e2e = main_path(dev, card)
+    inputs = chunk_inputs(dev)
+    e2e = main_path(inputs, card)
+    prof = profile_paths(inputs, card)
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
                             for p in e2e.values())
         log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
-            f" ms, {r['launches']} main-path launches  [{card}]")
+            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['launches']} main-path launches  [{card}]")
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
-    log(json.dumps({'main_path': e2e, 'card': card}))
+    log(json.dumps({'main_path': e2e, 'profile': prof, 'card': card}))
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -79,7 +79,7 @@ def test_bloom_pipeline_keyed_matches_jax(monkeypatch):
         pb.bloom_pallas, interpret=True))
     jfn = jax_make_pipeline('bloom', mode='TEST', use_pallas=True)
     fn = make_pipeline('bloom')
-    assert fn.backend == 'cuda:bloom'
+    assert fn.backend == 'cuda:generic'
     rng = np.random.RandomState(6)
     raw = rng.randint(0, 256, (4, 130, 220, 3)).astype(np.uint8)
     idx = np.asarray([0, 3, 17, 5])

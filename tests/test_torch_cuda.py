@@ -149,3 +149,79 @@ def test_wrappers_refuse_other_devices(dev):
     im = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         fk.fused_sap_median_batched(im, torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize('shape', [(3, 24, 40), (2, 37, 70), (1, 17, 300)])
+def test_bilateral_kernel_matches_plain(dev, shape):
+    """Kernel 5 against its plain version, including tiles past the image
+    edge (the BORDER_CONSTANT zeros) and zero bands."""
+    from tpudenoise_torch.denoise.bilateral import (bilateral_batched,
+                                                    bilateral_plain)
+    rng = np.random.RandomState(shape[2])
+    im = torch.from_numpy(rng.randint(0, 256, shape + (3,)).astype(
+        np.float32))
+    im[0, :, :5] = 0.0
+    got = bilateral_batched(im.to(dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), bilateral_plain(im), atol=0,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('n', [1, 4097, 600 * 1000 * 3])
+def test_threefry_kernel_matches_plain(dev, n):
+    """Bits and uniforms exact; normals within 2 ulp (the plain version's
+    float64 FMA can round twice)."""
+    from tpudenoise_torch.core import prng
+    keys = torch.from_numpy(prng.split(prng.PRNGKey(n), 3).astype(np.int64))
+    for mode, lo, span, scale in (('bits', 0.0, 1.0, 1.0),
+                                  ('uniform', 0.0, 1.0, 1.0),
+                                  ('uniform', 1.17549435e-38, 1.0, 1.0),
+                                  ('normal', 0.0, 1.0, 1.41421354)):
+        got = prng.threefry_draw(keys.to(dev), n, mode, lo, span, scale)
+        want = prng.threefry_draw_plain(keys.to(dev), n, mode, lo, span,
+                                        scale)
+        torch.cuda.synchronize()
+        if mode != 'normal':
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+        else:
+            ulp = (got.view(torch.int32).long()
+                   - want.view(torch.int32).long()).abs()
+            assert ulp.max() <= 2
+        if mode == 'bits':
+            np.testing.assert_array_equal(
+                got.cpu().numpy().view(np.uint32),
+                prng.random_bits(keys.numpy().astype(np.uint32), (n,)))
+
+
+def test_sap_median_per_image_kernel_matches_plain(dev):
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(4)
+    im = torch.from_numpy(rng.randint(0, 256, (3, 37, 29, 3)).astype(
+        np.float32))
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, 3).astype(
+        np.int32))
+    got = fk.fused_sap_median(im.to(dev), seeds.to(dev), 0.4, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), fk.fused_sap_median_plain(
+        im, seeds, 0.4, True), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('noise', ['speckle_bilateral_var1.0', 'poisson',
+                                   'gamma_var0.1', 'quant_var10',
+                                   'uniform_mean_var0.6', 'brownian_var0.9'])
+def test_generic_route_card_matches_cpu(dev, noise):
+    """The route on the card against itself on the CPU: the draws are
+    bit-equal (normals within 2 ulp); torch's CUDA and CPU log/exp/sin
+    may differ in a last ulp, so a mod-256 distance <= 1 on <= 1e-3 of
+    the elements."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.pipeline import make_pipeline
+    raw = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (2, 45, 70, 3)).astype(np.uint8))
+    keys = prng.fold_in(prng.PRNGKey(3), np.arange(2))
+    fn = make_pipeline(noise)
+    got = fn.keyed(keys, raw.to(dev)).cpu()
+    want = fn.keyed(keys, raw)
+    d = (got - want).abs()
+    d = torch.minimum(d, 256.0 - d)
+    assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3

@@ -156,9 +156,43 @@ def test_pipeline_keyed_matches_jax(pallas_interpret, noise, f32_input):
 
 
 def test_other_plans_raise():
-    for noise in ('original', 'sap_var0.4', 'bilateral',
-                  'noise_mix_var_low_wavelet', 'gaussian_median_var0.1',
-                  'speckle_median_var1.0', 'speckle_bilateral_var1.0',
-                  'bloom_median'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """What stays unported raises, naming its ROADMAP item; the plans this
+    test once listed as unported now build on the threefry or bilateral
+    routes."""
+    for noise, item in (('noise_mix_var_low_wavelet', 'item 10'),
+                        ('gaussian_wavelet_var0.1', 'item 10'),
+                        ('curvelet', 'item 13')):
+        with pytest.raises(NotImplementedError, match=item):
             make_pipeline(noise)
+    with pytest.raises(NotImplementedError, match='item 8'):
+        make_pipeline('speckle_var1.0', fast_rng=True)
+    for noise, backend in (('original', 'cuda:generic'),
+                           ('sap_var0.4', 'cuda:generic'),
+                           ('bilateral', 'cuda:generic'),
+                           ('gaussian_median_var0.1', 'cuda:generic'),
+                           ('speckle_median_var1.0', 'cuda:generic'),
+                           ('speckle_bilateral_var1.0', 'cuda:bilateral_x2'),
+                           ('bloom_median', 'cuda:generic')):
+        assert make_pipeline(noise).backend == backend, noise
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+@pytest.mark.parametrize('double', [True, False])
+def test_sap_median_per_image_entry_bitexact(shape, double):
+    """Kernel 4's entry (`fused_sap_median`, f32, one launch per image)
+    against the Pallas `fused_sap_median` in interpret mode, and equal to
+    the batched entry."""
+    im, seeds = _images(shape, 'f32', 3), _seeds(shape[0], 4)
+    want = np.asarray(pk.fused_sap_median(
+        jnp.asarray(im), jnp.asarray(seeds), 0.2, double, tile_h=16,
+        interpret=True))
+    got = fk.fused_sap_median(torch.from_numpy(im), torch.from_numpy(seeds),
+                              0.2, double).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, fk.fused_sap_median_batched(torch.from_numpy(im),
+                                         torch.from_numpy(seeds), 0.2,
+                                         double).numpy())
+    with pytest.raises(TypeError):
+        fk.fused_sap_median(torch.from_numpy(im).to(torch.uint8),
+                            torch.from_numpy(seeds))

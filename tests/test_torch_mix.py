@@ -265,7 +265,8 @@ def mix_interpret(monkeypatch):
 
 
 @pytest.mark.parametrize('noise', ['noise_mix_var_medium',
-                                   'noise_mix_var_all_bilateral'])
+                                   'noise_mix_var_all_bilateral',
+                                   'noise_mix_var_medium_median'])
 def test_pipeline_keyed_matches_jax(mix_interpret, noise):
     from tpudenoise.noise.pipeline import make_pipeline as jax_make_pipeline
     from tpudenoise_torch.noise.pipeline import make_pipeline
@@ -299,10 +300,12 @@ def test_mix_routes_and_refusals():
     assert (make_pipeline('noise_mix_var_high_bilateral').backend
             == 'cuda:fused_mix+bilateral')
     for noise, item in (('noise_mix_var_all_wavelet', 'item 10'),
-                        ('noise_mix_var_all_median', 'item 3'),
                         ('curvelet', 'item 13')):
         with pytest.raises(NotImplementedError, match=item):
             make_pipeline(noise, mode='TRAIN')
+    # a 3x3 stencil post-pass runs after the fused mix kernel
+    assert (make_pipeline('noise_mix_var_all_median', mode='TRAIN').backend
+            == 'cuda:fused_mix')
     im = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
     ops = mk.fused_mix_noise
     good = [torch.zeros(2, dtype=torch.int32), torch.zeros(2),

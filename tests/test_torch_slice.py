@@ -14,9 +14,9 @@ The mixed plan adds the quant palette (k-means centres within a few ulps
 of the reference's, so a near-tie pixel can map to another colour) and
 brownian's other summation order; both stay far inside that bound.
 
-Also: the port imports neither jax nor flax (checked in a subprocess where
-both are blocked, running all four noise plans), and its only tpudenoise
-imports are the four jax-free modules."""
+Also: the port imports neither jax, flax nor the JAX package (checked in a
+subprocess where all three are blocked, running six noise plans through
+detect_chunk)."""
 
 import functools
 import os
@@ -53,10 +53,12 @@ def env(tmp_path_factory):
 
 @pytest.mark.parametrize('noise', ['sap_median_var0.4',
                                    'gaussian_gaus_blur_var0.1',
-                                   'noise_mix_var_medium', 'bloom'])
+                                   'noise_mix_var_medium', 'bloom',
+                                   'speckle_bilateral_var1.0'])
 def test_slice_matches_jax(env, noise, monkeypatch):
     import jax
     import jax.numpy as jnp
+    import tpudenoise.denoise.pallas_bilateral as pbl
     import tpudenoise.eval.harness as jharness
     import tpudenoise.noise.pallas_bloom as pb
     import tpudenoise.noise.pallas_kernels as pk
@@ -75,6 +77,8 @@ def test_slice_matches_jax(env, noise, monkeypatch):
             getattr(pk, name), interpret=True))
     monkeypatch.setattr(pb, 'bloom_pallas', functools.partial(
         pb.bloom_pallas, interpret=True))
+    monkeypatch.setattr(pbl, 'bilateral_pallas', functools.partial(
+        pbl.bilateral_pallas, interpret=True))
     # the mix pipeline passes its own interpret flag: force the keyword
     fn = pm.fused_mix_noise
     monkeypatch.setattr(pm, 'fused_mix_noise', lambda *a, **k: fn(
@@ -123,6 +127,7 @@ def test_port_imports_no_jax_and_runs_detect_chunk():
         import sys
         sys.modules['jax'] = None
         sys.modules['flax'] = None
+        sys.modules['tpudenoise'] = None
         import numpy as np
         import torch
         import tpudenoise_torch
@@ -140,23 +145,20 @@ def test_port_imports_no_jax_and_runs_detect_chunk():
             0, 256, (2, 40, 56, 3)).astype(np.uint8))
         geom = torch.tensor([[40, 56, 40, 56, 1.0]] * 2)
         for noise in ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
-                      'noise_mix_var_medium', 'bloom'):
+                      'noise_mix_var_medium', 'bloom',
+                      'speckle_bilateral_var1.0', 'poisson'):
             boxes, scores, mask = harness.detect_chunk(
                 model, params, prng.PRNGKey(3), [0, 1], raw, geom,
                 geom[:, 2:], make_pipeline(noise), (48, 64))
             assert boxes.shape == (2, 2, 100, 4), boxes.shape
             assert torch.isfinite(boxes).all()
-        loaded = sorted(m for m in sys.modules
-                        if m == 'tpudenoise' or m.startswith('tpudenoise.'))
+        loaded = sorted(m for m, mod in sys.modules.items()
+                        if mod is not None and m.split('.')[0] in
+                        ('jax', 'flax', 'tpudenoise'))
         print(' '.join(loaded))
     ''')
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=600,
                          env={**os.environ, 'PYTHONPATH': REPO})
     assert res.returncode == 0, res.stderr[-3000:]
-    loaded = set(res.stdout.split())
-    allowed = {'tpudenoise', 'tpudenoise.noise', 'tpudenoise.noise.spec',
-               'tpudenoise.utils', 'tpudenoise.utils.blob',
-               'tpudenoise.models', 'tpudenoise.models.convert',
-               'tpudenoise.eval', 'tpudenoise.eval.voc_eval'}
-    assert loaded <= allowed, loaded - allowed
+    assert res.stdout.split() == []

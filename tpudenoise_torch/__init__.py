@@ -2,9 +2,9 @@
 
 The JAX package `tpudenoise` stays the reference; this package mirrors its
 module paths (`tpudenoise_torch.ops.nms` is the counterpart of
-`tpudenoise.ops.nms`) and never imports jax or flax.  Its only imports
-from the JAX package are the jax-free modules `noise.spec`, `utils.blob`,
-`models.convert.load_params_npz` and `eval.voc_eval`.
+`tpudenoise.ops.nms`) and imports nothing of jax, flax or `tpudenoise`:
+where it needs a jax-free piece of the reference (the noise grammar, the
+blob geometry, the `.npz` reader) it keeps its own copy.
 
 Every Pallas kernel on the ported path is a hand-written CUDA kernel under
 `csrc/`, built with nvcc at first use (see `cuda_build`).  Each kernel's

@@ -12,7 +12,10 @@ matching jax 0.9 with `jax_threefry_partitionable=True` (its default):
 * `randint` draws 2 x 32 bits from `split(key)` and reduces them modulo
   the span with jax's multiplier trick, in wrapping uint32 arithmetic;
 * `uniform` and `gumbel` (float32) feed the mix prologue's bloom params
-  and k-means init.
+  and k-means init; `normal` is `_normal_real`: sqrt(2) * erf_inv of a
+  uniform in [nextafter(-1, 0), 1).
+* `draw_bits`, `draw_uniform` and `draw_normal` take the same draws for
+  B keys x N elements on a torch device (the threefry kernel on a GPU).
 
 A key is a `(2,)` uint32 array, as `jax.random.PRNGKey` returns.  Every
 function also takes a batch of keys, (..., 2), and returns one result per
@@ -22,6 +25,9 @@ key along the leading axes, as `jax.vmap` over the keys would.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from tpudenoise_torch import cuda_build
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _U32 = np.uint32
@@ -133,3 +139,189 @@ def gumbel(key, shape) -> np.ndarray:
     u = uniform(key, shape, np.finfo(np.float32).tiny, 1.0)
     inner = np.log(u.astype(np.float64)).astype(np.float32)
     return (-np.log(-inner.astype(np.float64))).astype(np.float32)
+
+
+# ------------------------------------------------------------ normals --
+
+# XLA's f32 erf_inv (Giles' single-precision polynomial), coefficients for
+# w < 5 and w >= 5, highest power first
+_ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GT = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+_SQRT2 = np.float32(np.sqrt(2))
+# `normal` draws u uniform in [nextafter(-1, 0), 1): minval, and the f32
+# span maxval - minval, which rounds to 2
+NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+NORMAL_SPAN = np.float32(1.0) - NORMAL_LO
+
+
+def _erf_inv32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 erf_inv: w = -log1p(-x*x), then a degree-8 Horner in w - 2.5
+    or sqrt(w) - 3 with each step an FMA, as XLA's CPU code contracts it.
+    XLA's log1p is not correctly rounded, so the result agrees with jax to
+    a few ulps (bit-equal on ~99% of normal draws)."""
+    f32 = np.float32
+    x = np.asarray(x, f32)
+    w = -np.log1p(-(x * x))
+    lt = w < f32(5.0)
+    w = np.where(lt, w - f32(2.5), np.sqrt(w) - f32(3.0)).astype(f32)
+    p = np.where(lt, f32(_ERFINV_LT[0]), f32(_ERFINV_GT[0])).astype(f32)
+    for lo_c, hi_c in zip(_ERFINV_LT[1:], _ERFINV_GT[1:]):
+        p = _fma32(p, w, np.where(lt, f32(lo_c), f32(hi_c)))
+    return np.where(np.abs(x) == f32(1.0), x * f32(np.inf), p * x)
+
+
+def normal(key, shape) -> np.ndarray:
+    """`jax.random.normal` for float32 (`_normal_real`): sqrt(2) *
+    erf_inv(u), u uniform in [nextafter(-1, 0), 1)."""
+    u = uniform(key, shape, NORMAL_LO, 1.0)
+    return (_SQRT2 * _erf_inv32(u)).astype(np.float32)
+
+
+# --------------------------------------------------------- device draws --
+#
+# The noise generators draw whole fields: B keys x N elements (N = H*W*3,
+# 1.8M per 600x1000 image).  On the host that takes seconds per chunk, so
+# the draws run on the images' device: for a CUDA device the threefry
+# kernel of `csrc/threefry.cu`, for the CPU its plain torch version below
+# (the same arithmetic in int64 masked to 32 bits: torch on the CPU lacks
+# uint32 `>>`).  Element i of key b is threefry2x32(key_b, (hi, lo) of i),
+# then bits_hi ^ bits_lo, as `random_bits`.
+
+_M32 = 0xFFFFFFFF
+MODES = {'bits': 0, 'uniform': 1, 'normal': 2}
+
+# kernel launches, counted where the wrapper launches the kernel
+launches = {'threefry': 0}
+
+
+def _fma_t(a, b, c):
+    """f32 a*b + c rounded once (XLA's contraction), via float64."""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def threefry_bits_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(K, 2) int64 key words -> (K, n) int64 32-bit draws."""
+    k0, k1 = keys[:, :1] & _M32, keys[:, 1:] & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None]
+    x0 = (lo >> 32) + ks[0] & _M32          # counter hi word
+    x1 = (lo & _M32) + ks[1] & _M32
+    for step in range(5):
+        for r in _ROTATIONS[step % 2]:
+            x0 = x0 + x1 & _M32
+            x1 = ((x1 << r) & _M32 | x1 >> (32 - r)) ^ x0
+        x0 = x0 + ks[(step + 1) % 3] & _M32
+        x1 = x1 + ks[(step + 2) % 3] + (step + 1) & _M32
+    return x0 ^ x1
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """23 mantissa bits under the exponent of 1.0, minus 1: [0, 1)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def uniform_plain(bits, lo: float, span: float) -> torch.Tensor:
+    """max(lo, floats * span + lo), the multiply-add contracted."""
+    return torch.clamp(_fma_t(_unit_floats(bits), span, lo), min=lo)
+
+
+def erf_inv_plain(x: torch.Tensor) -> torch.Tensor:
+    """`_erf_inv32` in torch f32 ops."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    f32 = np.float32
+
+    def coef(i):
+        return torch.where(lt, float(f32(_ERFINV_LT[i])),
+                           float(f32(_ERFINV_GT[i])))
+
+    p = coef(0)
+    for i in range(1, 9):
+        p = _fma_t(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * float('inf'), p * x)
+
+
+def threefry_draw_plain(keys: torch.Tensor, n: int, mode: str,
+                        lo: float = 0.0, span: float = 1.0,
+                        scale: float = 1.0) -> torch.Tensor:
+    """The plain version of the threefry kernel: (K, 2) int64 keys ->
+    (K, n) int32 bits, or float32 uniforms / scale * erf_inv(u)."""
+    bits = threefry_bits_plain(keys, n)
+    if mode == 'bits':
+        return (bits - ((bits >> 31) << 32)).to(torch.int32)
+    if mode == 'uniform':
+        return uniform_plain(bits, lo, span)
+    u = uniform_plain(bits, float(NORMAL_LO), float(NORMAL_SPAN))
+    return scale * erf_inv_plain(u)
+
+
+def threefry_draw(keys: torch.Tensor, n: int, mode: str, lo: float = 0.0,
+                  span: float = 1.0, scale: float = 1.0) -> torch.Tensor:
+    """(K, 2) int64 key words (uint32 values) on a device -> (K, n) draws
+    there: 'bits' int32, 'uniform' max(lo, u * span + lo), 'normal'
+    scale * erf_inv(u) (float32; lo and span are then those of `normal`)."""
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError('keys must be (K, 2) int64')
+    if not 0 < n < 2**31:
+        raise ValueError(f'n = {n} outside [1, 2**31)')
+    if keys.device.type == 'cpu':
+        return threefry_draw_plain(keys, n, mode, lo, span, scale)
+    if keys.device.type != 'cuda':
+        raise ValueError(f'unsupported device {keys.device}')
+    k = keys.shape[0]
+    if mode == 'normal':          # the uniform of `normal`, whatever given
+        lo, span = NORMAL_LO, NORMAL_SPAN
+    words = (keys & _M32).to(torch.int32).contiguous()   # wraps to int32
+    dtype = torch.int32 if mode == 'bits' else torch.float32
+    out = torch.empty((k, n), dtype=dtype, device=keys.device)
+    cuda_build.launch('threefry', 'threefry_draw', words, out, k, n,
+                      MODES[mode], float(lo), float(span), float(scale))
+    launches['threefry'] += 1
+    return out
+
+
+def _key_tensor(keys, device) -> torch.Tensor:
+    keys = key_data(keys)
+    return torch.from_numpy(keys.reshape(-1, 2).astype(np.int64)).to(device)
+
+
+def draw_bits(keys, n: int, device) -> torch.Tensor:
+    """`random_bits(key, (n,))` for each key of (..., 2) as int32 (the
+    same 32 bits) on `device`: (..., n)."""
+    keys = key_data(keys)
+    return threefry_draw(_key_tensor(keys, device), n, 'bits').reshape(
+        keys.shape[:-1] + (n,))
+
+
+def draw_uniform(keys, n: int, device, minval=0.0,
+                 maxval=1.0) -> torch.Tensor:
+    """`uniform(key, (n,), minval, maxval)` for each key, on `device`."""
+    keys = key_data(keys)
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return threefry_draw(_key_tensor(keys, device), n, 'uniform', float(lo),
+                         float(span)).reshape(keys.shape[:-1] + (n,))
+
+
+def draw_erf_inv(keys, n: int, device, scale=1.0) -> torch.Tensor:
+    """f32(scale) * erf_inv(u) for each key, u the uniform of `normal`:
+    `normal(key, (n,)) * c` as XLA evaluates it, for scale = f32(sqrt(2))
+    * f32(c) (it folds the two constant factors), or the bare erf_inv for
+    scale 1."""
+    keys = key_data(keys)
+    return threefry_draw(_key_tensor(keys, device), n, 'normal',
+                         scale=float(np.float32(scale))).reshape(
+        keys.shape[:-1] + (n,))
+
+
+def draw_normal(keys, n: int, device, factor=None) -> torch.Tensor:
+    """`normal(key, (n,))` for each key, on `device`; with a constant
+    `factor`, `normal(key, (n,)) * factor` as XLA folds it."""
+    scale = _SQRT2 if factor is None else _SQRT2 * np.float32(factor)
+    return draw_erf_inv(keys, n, device, scale)

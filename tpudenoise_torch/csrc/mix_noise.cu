@@ -7,8 +7,9 @@
 //   * mix_bilateral <- _mix_bilateral_kernel / fused_mix_bilateral: the
 //     same noise on a halo'd window, out-of-image elements zeroed
 //     (BORDER_CONSTANT of the noisy image), then the d=9 bilateral of
-//     tpudenoise/denoise/pallas_bilateral.py:_bilateral_body.  Nothing
-//     noisy goes to device memory.
+//     tpudenoise/denoise/pallas_bilateral.py:_bilateral_body (shared with
+//     the standalone bilateral in bilateral_taps.cuh).  Nothing noisy goes
+//     to device memory.
 //
 // Layout: images (B, H, W, 3) u8 in, float32 out, interleaved.  The kind
 // is per image (blockIdx.z), so a block never diverges on it.  Random
@@ -48,6 +49,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bilateral_taps.cuh"
 #include "bloom_steps.cuh"
 
 namespace {
@@ -59,8 +61,8 @@ enum Kind {
 };
 
 constexpr int kKPad = 10;      // quant centres per image
-constexpr int kRadius = 4;     // bilateral d=9
-constexpr int kTaps = 49;
+using bilateral_taps::kRadius;  // bilateral d=9
+using bilateral_taps::kTaps;
 constexpr int kTileH = 16, kTileW = 64;
 constexpr int kWinH = kTileH + 2 * kRadius, kWinW = kTileW + 2 * kRadius;
 constexpr int kThreads = 256;
@@ -462,32 +464,6 @@ mix_noise_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
   for (int c = 0; c < 3; ++c) out[e + c] = o[c];
 }
 
-// The bilateral at window position (wy, wx) of a planar [3][kWinH][kWinW]
-// window, 49 taps dy outer / dx inner, as _bilateral_body.
-__device__ void bilateral_pixel(const float (*win)[kWinH][kWinW], int wy,
-                                int wx, const float* sw, float gc,
-                                float out[3]) {
-  const float c0 = win[0][wy][wx], c1 = win[1][wy][wx], c2 = win[2][wy][wx];
-  float num[3] = {0.0f, 0.0f, 0.0f};
-  float den = 0.0f;
-  int k = 0;
-  for (int dy = -kRadius; dy <= kRadius; ++dy) {
-    for (int dx = -kRadius; dx <= kRadius; ++dx) {
-      if (dy * dy + dx * dx > kRadius * kRadius) continue;
-      const float v0 = win[0][wy + dy][wx + dx];
-      const float v1 = win[1][wy + dy][wx + dx];
-      const float v2 = win[2][wy + dy][wx + dx];
-      const float d = (fabsf(v0 - c0) + fabsf(v1 - c1)) + fabsf(v2 - c2);
-      const float wgt = sw[k++] * expf((gc * d) * d);
-      num[0] = num[0] + wgt * v0;
-      num[1] = num[1] + wgt * v1;
-      num[2] = num[2] + wgt * v2;
-      den = den + wgt;
-    }
-  }
-  for (int c = 0; c < 3; ++c) out[c] = rintf(num[c] / den);
-}
-
 __global__ void __launch_bounds__(kThreads)
 mix_bilateral_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
                      const int* __restrict__ kind,
@@ -524,7 +500,8 @@ mix_bilateral_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
     const int y = r0 + ty, x = c0 + tx;
     if (y >= h || x >= w) continue;
     float o[3];
-    bilateral_pixel(win, ty + kRadius, tx + kRadius, sw, gc, o);
+    bilateral_taps::pixel<kWinH, kWinW>(win, ty + kRadius, tx + kRadius, sw,
+                                        gc, o);
     const size_t e = (((size_t)b * h + y) * w + x) * 3;
     for (int c = 0; c < 3; ++c) out[e + c] = o[c];
   }

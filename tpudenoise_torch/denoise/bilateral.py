@@ -1,6 +1,10 @@
 """cv2-style bilateral filter, d=9 (counterpart of
-`tpudenoise/denoise/pallas_bilateral.py` `_bilateral_body`), as a plain
-torch function.
+`tpudenoise/denoise/pallas_bilateral.py`: `bilateral_pallas` and its body
+`_bilateral_body`).
+
+`bilateral_batched` launches the kernel of `csrc/bilateral.cu` for a CUDA
+tensor and runs the plain torch version, `bilateral_plain`, for a CPU
+tensor.
 
 The taps are the disk dx^2 + dy^2 <= 16 (49 taps), summed dy outer, dx
 inner.  BORDER_CONSTANT: the zero border takes part in the sums.  One
@@ -9,8 +13,9 @@ channels' |difference| (B + G, then + R), times the spatial weight; both
 constants are the float32 values of the reference's Python doubles.
 Output round(num / den), half to even.
 
-The mix + bilateral kernel (`csrc/mix_noise.cu`, `bilateral_pixel`)
-computes the same sums in the same order.
+Both kernels that filter (`csrc/bilateral.cu` and the mix + bilateral
+kernel of `csrc/mix_noise.cu`) compute the same sums in the same order,
+through `csrc/bilateral_taps.cuh`.
 """
 
 from __future__ import annotations
@@ -20,7 +25,12 @@ import math
 import numpy as np
 import torch
 
+from tpudenoise_torch import cuda_build
+
 RADIUS = 4
+
+# kernel launches, counted where the wrapper launches its kernel
+launches = {'bilateral': 0}
 
 
 def taps(sigma_space: float = 100.0):
@@ -57,3 +67,26 @@ def bilateral_plain(images: torch.Tensor, sigma_color: float = 20.0,
         num = num + wgt[..., None] * v
         den = den + wgt
     return torch.round(num / den[..., None])
+
+
+def bilateral_batched(images: torch.Tensor, sigma_color: float = 20.0,
+                      sigma_space: float = 100.0) -> torch.Tensor:
+    """The d=9 bilateral of (B, H, W, 3) float32 u8-domain images, one
+    pass over the batch; returns float32."""
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f'images must be (B, H, W, 3), got {images.shape}')
+    if images.dtype != torch.float32:
+        raise TypeError(f'images must be float32, got {images.dtype}')
+    if images.device.type == 'cpu':
+        return bilateral_plain(images, sigma_color, sigma_space)
+    if images.device.type != 'cuda':
+        raise ValueError(f'unsupported device {images.device}')
+    b, h, w, _ = images.shape
+    images = images.contiguous()
+    out = torch.empty_like(images)
+    sw = torch.tensor([t[2] for t in taps(sigma_space)], dtype=torch.float32,
+                      device=images.device)
+    cuda_build.launch('bilateral', 'bilateral', images, out, sw,
+                      color_coeff(sigma_color), b, h, w)
+    launches['bilateral'] += 1
+    return out

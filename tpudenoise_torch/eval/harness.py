@@ -22,6 +22,7 @@ from tpudenoise_torch.ops.boxes import (bbox_transform_inv,
                                         clip_boxes_lower_only)
 from tpudenoise_torch.ops.nms import NEG_INF, nms_fixpoint
 from tpudenoise_torch.ops.resize import prep_on_device
+from tpudenoise_torch.utils.blob import derive_bucket, rescale_geometry
 
 
 def set_matmul_precision():
@@ -124,7 +125,6 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     imdb_obj.evaluate_detections(...)."""
     import cv2
     import PIL.Image
-    from tpudenoise.utils.blob import derive_bucket, rescale_geometry
     if compute_id:
         _not_ported('compute_id (TwoNN probes)', 'Queue 1 item 14')
     if mesh is not None:

@@ -6,6 +6,10 @@ package returns it (numpy or jax arrays), or as the shared `.npz` layout
 stores it (`load_params_npz`).  Conv kernels go HWIO -> OIHW, Dense
 kernels (in, out) -> (out, in); fc6's rows keep the HWC flatten order of
 (R, 7, 7, 512), which the port's tail reproduces.
+
+The `.npz` layout is flat keys 'tree/sub/.../leaf' -> array, as
+`tpudenoise.models.convert.save_params_npz` writes it; `load_params_npz`
+here reads it back without the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +17,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpudenoise.models.convert import load_params_npz
+
+def load_params_npz(path: str) -> dict:
+    """The nested {'head', 'rpn', 'tail'} tree of numpy arrays stored in a
+    `.npz` of flat 'a/b/.../leaf' keys."""
+    out = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split('/')
+            d = out
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = data[key]
+    return out
 
 
 def _t(a, transpose=None) -> torch.Tensor:

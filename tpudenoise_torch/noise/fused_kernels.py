@@ -7,6 +7,9 @@
 * `fused_gaussian_blur`: Box-Muller gaussian noise from two coordinate
   hashes, u8 truncation, then a [1,2,1]/4 blur once or twice (REFLECT_101;
   halo rows draw the mirrored row's noise).
+* `fused_sap_median`: the per-image entry of the sap + median kernel
+  (`pallas_kernels.fused_sap_median`, one `pallas_call` per image): f32
+  images, one launch of the same CUDA kernel per image.
 
 Images are (B, H, W, 3) uint8 or float32 u8-domain; the output dtype
 follows the input.  A CUDA tensor launches the kernel of
@@ -31,7 +34,7 @@ _TINY = float(np.float32(1e-12))
 _SEED2 = 0x2545F491
 
 # kernel launches, counted where each wrapper launches its kernel
-launches = {'sap_median': 0, 'gauss_blur': 0}
+launches = {'sap_median': 0, 'gauss_blur': 0, 'sap_median_image': 0}
 
 
 # ------------------------------------------------------------- hashing --
@@ -66,6 +69,12 @@ def _coords(h: int, w3: int, seeds: torch.Tensor):
 
 def _sap_threshold(amount: float) -> int:
     return (int(amount * 4294967296.0) if amount < 1.0 else _M32)
+
+
+def _sap_threshold_i32(amount: float) -> int:
+    """The uint32 threshold as the int32 argument of the kernels."""
+    t = _sap_threshold(amount)
+    return t - 2**32 if t >= 2**31 else t
 
 
 # ---------------------------------------------------------- stencils ----
@@ -197,13 +206,33 @@ def fused_sap_median_batched(images: torch.Tensor, seeds: torch.Tensor,
     b, h, w, _ = images.shape
     images, seeds = images.contiguous(), seeds.contiguous()
     out = torch.empty_like(images)
-    thresh = _sap_threshold(amount)
     suffix = 'u8' if images.dtype == torch.uint8 else 'f32'
     cuda_build.launch('fused_noise', f'sap_median_{suffix}', images, out,
-                      seeds, b, h, 3 * w,
-                      thresh - 2**32 if thresh >= 2**31 else thresh,
+                      seeds, b, h, 3 * w, _sap_threshold_i32(amount),
                       int(double_filter))
     launches['sap_median'] += 1
+    return out
+
+
+def fused_sap_median(images: torch.Tensor, seeds: torch.Tensor,
+                     amount: float = 0.4, double_filter: bool = True
+                     ) -> torch.Tensor:
+    """Salt & pepper + median3 (x2), one image per launch: images (B, H, W,
+    3) float32 u8-domain, seeds (B,) int32.  Equal to
+    `fused_sap_median_batched` on the same inputs."""
+    _check(images, seeds)
+    if images.dtype != torch.float32:
+        raise TypeError(f'images must be float32, got {images.dtype}')
+    if images.device.type == 'cpu':
+        return fused_sap_median_plain(images, seeds, amount, double_filter)
+    _, h, w, _ = images.shape
+    images, seeds = images.contiguous(), seeds.contiguous()
+    out = torch.empty_like(images)
+    for i in range(images.shape[0]):
+        cuda_build.launch('fused_noise', 'sap_median_f32', images[i:i + 1],
+                          out[i:i + 1], seeds[i:i + 1], 1, h, 3 * w,
+                          _sap_threshold_i32(amount), int(double_filter))
+        launches['sap_median_image'] += 1
     return out
 
 

@@ -1,5 +1,4 @@
-"""The generator pieces the fused mix and bloom routes need (counterpart of
-part of `tpudenoise/noise/generators.py`).
+"""The noise generators (counterpart of `tpudenoise/noise/generators.py`).
 
 * `wrap_cast_u8` / `saturate_u8`: numpy's float -> uint8 cast (truncate,
   wrap mod 256) and cv2's saturate_cast (round half-even, clamp).
@@ -10,6 +9,10 @@ part of `tpudenoise/noise/generators.py`).
   reference, so the values are bit-equal.
 * `bloom_apply_scan`: the 48-step compositing over a batch, the plain
   version of the bloom kernel (`noise/bloom.py`).
+* the threefry generators of the single-kind route: `to_unit`,
+  `gaussian`, `salt_and_pepper`, `speckle`, `uniform_add`, `gamma_add`,
+  `rayleigh_add`, `poisson`, `brownian`, `periodic` and `shader`,
+  batched over images with one key each.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from tpudenoise_torch.core import prng
+from tpudenoise_torch.noise import samplers
 
 N_STEPS = 48   # compositing steps: 8 random circles + 40 source rings
 N_CIRC = 8
@@ -111,3 +115,159 @@ def bloom_apply_scan(images: torch.Tensor, params: torch.Tensor
         a = p[:, 6, None, None, None]
         output = saturate_u8(a * overlay + (1.0 - a) * output)
     return output
+
+
+# ----------------------------------------------- threefry generators --
+#
+# The reference's XLA generators (`tpudenoise/noise/generators.py`), batched
+# over (B, H, W, 3) u8-domain float32 images with one key per image ((B, 2)
+# uint32): each draws its fields with `prng.draw_*` on the images' device
+# and does the rest in torch ops, rounding where XLA's CPU code rounds.
+# Inside the reference's program XLA folds constant factors into the
+# normal draws' sqrt(2) (`normal * sd` is erf_inv * (sqrt(2) * sd), even
+# for a per-image sd) and contracts a multiply feeding an add into one FMA,
+# to_unit's `img * (1/255)` included; `prng._fma_t` rounds once where it
+# does.  The tests hold each form bit-equal on the floats.
+
+_INV255 = float(np.float32(1.0 / 255.0))
+
+
+def to_unit(img_u8: torch.Tensor) -> torch.Tensor:
+    """img_as_float for u8-domain floats: x * f32(1/255)."""
+    return img_u8 * _INV255
+
+
+def _unit_plus(img_u8: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """to_unit(img) + t with to_unit's multiply contracted into the add."""
+    return prng._fma_t(img_u8, _INV255, t)
+
+
+def _n(x: torch.Tensor) -> int:
+    return x[0].numel()
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def gaussian(keys, img_u8: torch.Tensor, var) -> torch.Tensor:
+    """x + N(0, var), clipped to [0, 1]; var a float or a (B,) float32
+    tensor (the per-image level of the randomized-level quirk)."""
+    n, dev = _n(img_u8), img_u8.device
+    if isinstance(var, torch.Tensor):
+        factor = torch.sqrt(var.to(torch.float32)) * float(prng._SQRT2)
+        noise = prng.draw_erf_inv(keys, n, dev) * factor[:, None]
+    else:
+        noise = prng.draw_normal(keys, n, dev, np.sqrt(np.float32(var)))
+    return torch.clamp(_unit_plus(img_u8, noise.reshape(img_u8.shape)),
+                       0.0, 1.0)
+
+
+def salt_and_pepper(keys, img_u8: torch.Tensor, amount: float,
+                    salt_vs_pepper: float = 0.5) -> torch.Tensor:
+    """`amount` of the elements flipped to 1 (salt, p = salt_vs_pepper) or
+    0, from two uniform fields of split(key); the rest to_unit(img)."""
+    u = prng.draw_uniform(prng.split(keys), _n(img_u8), img_u8.device)
+    flipped = u[:, 0].reshape(img_u8.shape) < _f32(amount)
+    salted = u[:, 1].reshape(img_u8.shape) < _f32(salt_vs_pepper)
+    out = torch.where(flipped & salted, 1.0, to_unit(img_u8))
+    return torch.where(flipped & ~salted, 0.0, out)
+
+
+def speckle(keys, img_u8: torch.Tensor, var: float) -> torch.Tensor:
+    """x + x * N(0, var), clipped to [0, 1]."""
+    noise = prng.draw_normal(keys, _n(img_u8), img_u8.device,
+                             np.sqrt(np.float32(var))).reshape(img_u8.shape)
+    x01 = to_unit(img_u8)
+    return torch.clamp(prng._fma_t(x01, noise, x01), 0.0, 1.0)
+
+
+def uniform_add(keys, img_u8: torch.Tensor, high: float) -> torch.Tensor:
+    """U(0, high) added to to_unit(img), no clip."""
+    u = prng.draw_uniform(keys, _n(img_u8), img_u8.device, 0.0, high)
+    return _unit_plus(img_u8, u.reshape(img_u8.shape))
+
+
+def gamma_add(keys, img_u8: torch.Tensor, scale: float,
+              a: float = 1.99) -> torch.Tensor:
+    """Gamma(a = 1.99, scale) added to to_unit(img), no clip."""
+    g = samplers.gamma_fixed(keys, a, _n(img_u8), img_u8.device)
+    return _unit_plus(img_u8, g.reshape(img_u8.shape) * _f32(scale))
+
+
+def rayleigh_add(keys, img_u8: torch.Tensor, scale: float) -> torch.Tensor:
+    """Rayleigh(scale) = scale * sqrt(-2 ln U) added to to_unit(img), no
+    clip."""
+    u = prng.draw_uniform(keys, _n(img_u8), img_u8.device,
+                          np.finfo(np.float32).tiny, 1.0)
+    r = torch.sqrt(-2.0 * torch.log(u)) * _f32(scale)
+    return _unit_plus(img_u8, r.reshape(img_u8.shape))
+
+
+def poisson(keys, img_u8: torch.Tensor) -> torch.Tensor:
+    """skimage's poisson mode: vals = 2^ceil(log2(distinct u8 values)),
+    Poisson(x * vals) / vals, clipped to [0, 1]."""
+    counts = torch.stack([u8_unique_count(im) for im in img_u8])
+    vals = torch.exp2(torch.ceil(torch.log2(counts.to(torch.float64)))).to(
+        torch.float32)[:, None, None, None]
+    lam = (to_unit(img_u8) * vals).reshape(img_u8.shape[0], -1)
+    k = samplers.poisson_fixed(keys, lam).reshape(img_u8.shape)
+    return torch.clamp(k / vals, 0.0, 1.0)
+
+
+def log_step_scan(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along `dim` in the fixed Hillis-Steele order
+    of the brownian kernels: x[i] += x[i - k] for k = 1, 2, 4, ..."""
+    n = x.shape[dim]
+    k = 1
+    while k < n:
+        x = torch.cat([x.narrow(dim, 0, k),
+                       x.narrow(dim, k, n - k) + x.narrow(dim, 0, n - k)],
+                      dim)
+        k *= 2
+    return x
+
+
+def brownian_path(z: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix of the (H, W*3) raster increments z, rows first:
+    an element's row offset plus its exclusive in-row prefix."""
+    rows = log_step_scan(z, 1)
+    excl = torch.cat([torch.zeros_like(rows[:, :1]), rows[:, :-1]], 1)
+    tot = log_step_scan(rows[:, -1], 0)
+    off = torch.cat([torch.zeros_like(tot[:1]), tot[:-1]])
+    return off[:, None] + excl
+
+
+def brownian(keys, img_u8: torch.Tensor, dt: float) -> torch.Tensor:
+    """A Brownian path over each image's element raster: the exclusive
+    prefix of sqrt(dt) * N(0, 1), times 255, wrap-cast to u8, then a
+    saturating add.  The prefix runs in the fixed log-step order of
+    `brownian_path`, which the mix kernel's brownian shares (the
+    reference's cumsum sums in XLA's own order)."""
+    b, h, w, _ = img_u8.shape
+    db = prng.draw_normal(keys, _n(img_u8), img_u8.device,
+                          np.sqrt(np.float32(dt)))
+    path = torch.stack([brownian_path(d.reshape(h, 3 * w)) for d in db])
+    return saturate_u8(img_u8 + wrap_cast_u8(path.reshape(img_u8.shape)
+                                             * 255.0))
+
+
+def periodic(img_u8: torch.Tensor, amplitude: float) -> torch.Tensor:
+    """sin over linspace(-A, A, n) of the element raster, times 255,
+    wrap-cast, saturating add; amplitude < 0 means A = n.  XLA turns the
+    step's division by the constant n - 1 into a multiply by its f32
+    reciprocal and contracts -A + i * step."""
+    n = _n(img_u8)
+    f32 = np.float32
+    a = f32(n if amplitude < 0 else amplitude)
+    step = float((f32(2.0) * a) * (f32(1.0) / f32(n - 1)))
+    i = torch.arange(n, dtype=torch.float32, device=img_u8.device)
+    t = prng._fma_t(i, step, float(-a))
+    noise = wrap_cast_u8(torch.sin(t) * 255.0).reshape(img_u8.shape[1:])
+    return saturate_u8(img_u8 + noise)
+
+
+def shader(img_u8: torch.Tensor, factor: float = 3.0) -> torch.Tensor:
+    """PIL ImageEnhance.Brightness(3) on the BGR image read as RGB: the
+    result comes back channel-swapped."""
+    return saturate_u8(img_u8 * factor).flip(-1)

@@ -1,5 +1,6 @@
-"""The quant noise's k-means palette fit (counterpart of
-`tpudenoise/noise/kmeans.py` `kmeans_fit_traced_k`).
+"""The quant noise's k-means palette (counterpart of
+`tpudenoise/noise/kmeans.py`: `kmeans_fit_traced_k`, `kmeans` with a
+static k, and `quantize_colors`).
 
 k-means++ init (one Gumbel-max draw per centre), 15 mini-batch steps over
 cycling 1024-point slices with sklearn's cumulative-count update, then 3
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from tpudenoise_torch.core import prng
+from tpudenoise_torch.ops.color import bgr_u8_to_lab_u8, lab_u8_to_bgr_u8
 
 K_PAD = 10      # max cluster count (quant_var10)
 FIT_SET = 8192  # fit subsample size for larger images
@@ -28,10 +30,11 @@ _ITERS = 15
 _LLOYD = 3
 
 
-def fit_draws(key, n: int):
-    """Host draws of `kmeans_fit_traced_k` and of the prologue's fit
-    subsample for an image of n pixels: (fit_idx (S,) int32 or None,
-    first (int), gumbel (K_PAD - 1, S) float32)."""
+def fit_draws(key, n: int, k: int = K_PAD):
+    """Host draws of a fit of k centres and of its fit subsample for an
+    image of n pixels: (fit_idx (S,) int32 or None, first (int), gumbel
+    (k - 1, S) float32).  The draws for k centres are the first ones of
+    the draws for more."""
     if n > FIT_SET:
         key, sub = prng.split(key)
         fit_idx = prng.randint(sub, (FIT_SET,), 0, n)
@@ -40,8 +43,8 @@ def fit_draws(key, n: int):
         fit_idx, s = None, n
     key, sub = prng.split(key)
     first = int(prng.randint(sub, (), 0, s))
-    gumbel = np.empty((K_PAD - 1, s), np.float32)
-    for i in range(K_PAD - 1):
+    gumbel = np.empty((k - 1, s), np.float32)
+    for i in range(k - 1):
         key, sub = prng.split(key)
         gumbel[i] = prng.gumbel(sub, (s,))
     return fit_idx, first, gumbel
@@ -74,20 +77,20 @@ def _counts_sums(labels, points):
 def kmeans_fit_traced_k(points: torch.Tensor, kk: int, first: int,
                         gumbel: torch.Tensor):
     """points (S, 3) float32; kk in [1, K_PAD]; first and gumbel
-    (K_PAD - 1, S) from `fit_draws`.  Returns (centers (K_PAD, 3),
-    active (K_PAD,) bool); inactive centres keep their init value."""
+    (>= kk - 1, S) from `fit_draws`.  Returns (centers (K_PAD, 3),
+    active (K_PAD,) bool); inactive centres keep their init value (the
+    reference's init steps past kk change nothing, so they are skipped)."""
     n = points.shape[0]
     dev = points.device
     active = torch.arange(K_PAD, device=dev) < kk
     centers = torch.zeros((K_PAD, 3), dtype=torch.float32, device=dev)
     centers[0] = points[first]
     d2 = _sq_dist(points, points[first])
-    for i in range(1, K_PAD):
+    for i in range(1, kk):
         logits = torch.log(torch.clamp(d2, min=float(np.float32(1e-12))))
         c = points[torch.argmax(logits + gumbel[i - 1])]
-        if i < kk:
-            centers[i] = c
-            d2 = torch.minimum(d2, _sq_dist(points, c))
+        centers[i] = c
+        d2 = torch.minimum(d2, _sq_dist(points, c))
 
     x2 = _sq_dist(points, torch.zeros_like(points[0]))[:, None]
     mb = min(1024, n)
@@ -108,3 +111,36 @@ def kmeans_fit_traced_k(points: torch.Tensor, kk: int, first: int,
         new = torch.where(counts[:, None] > 0, new, centers)
         centers = torch.where(active[:, None], new, centers)
     return centers, active
+
+
+def kmeans(key, points: torch.Tensor, k: int):
+    """The reference's static-k `kmeans` (iters 15, fit subsample 8192):
+    points (N, 3) float32 -> (centers (k, 3), labels (N,)).  The fit is
+    `kmeans_fit_traced_k` with kk = k (the reference's two fits share
+    their stream), then every point goes to its nearest centre."""
+    n = points.shape[0]
+    fit_idx, first, gumbel = fit_draws(key, n, k)
+    fit = points
+    if fit_idx is not None:
+        fit = points[torch.from_numpy(fit_idx.astype(np.int64)).to(
+            points.device)]
+    centers, _ = kmeans_fit_traced_k(fit, k, first,
+                                     torch.from_numpy(gumbel).to(
+                                         points.device))
+    centers = centers[:k]
+    x2 = _sq_dist(points, torch.zeros_like(points[0]))[:, None]
+    active = torch.ones(k, dtype=torch.bool, device=points.device)
+    return centers, _assign(points, x2, centers, active)
+
+
+def quantize_colors(keys, img_u8: torch.Tensor, k: int) -> torch.Tensor:
+    """The quant noise over (B, H, W, 3) u8-domain images, one key each:
+    BGR -> u8 LAB, a k-means palette of the LAB pixels, centres truncated
+    to u8, every pixel mapped to its centre's BGR."""
+    out = torch.empty_like(img_u8, dtype=torch.float32)
+    for i, im in enumerate(img_u8):
+        pts = bgr_u8_to_lab_u8(im.reshape(-1, 3).to(torch.float32))
+        centers, labels = kmeans(keys[i], pts, k)
+        bgr = lab_u8_to_bgr_u8(torch.trunc(torch.clamp(centers, 0.0, 255.0)))
+        out[i] = bgr[labels].reshape(im.shape)
+    return out

@@ -36,7 +36,8 @@ from tpudenoise_torch.denoise.bilateral import (bilateral_plain,
                                                 color_coeff, taps)
 from tpudenoise_torch.noise.fused_kernels import _M32, _mul32
 from tpudenoise_torch.noise.generators import (N_STEPS, bloom_apply_scan,
-                                               saturate_u8, wrap_cast_u8)
+                                               brownian_path, saturate_u8,
+                                               wrap_cast_u8)
 from tpudenoise_torch.noise.kmeans import K_PAD
 from tpudenoise_torch.noise.spec import Kind
 
@@ -233,29 +234,6 @@ def _periodic(g):
 def _shader(g):
     bright = saturate_u8(g.x * 3.0)
     return bright.flip(-1)
-
-
-def log_step_scan(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Inclusive prefix sum along `dim` in the fixed Hillis-Steele order
-    of the brownian kernels: x[i] += x[i - k] for k = 1, 2, 4, ..."""
-    n = x.shape[dim]
-    k = 1
-    while k < n:
-        x = torch.cat([x.narrow(dim, 0, k),
-                       x.narrow(dim, k, n - k) + x.narrow(dim, 0, n - k)],
-                      dim)
-        k *= 2
-    return x
-
-
-def brownian_path(z: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix of the (H, W*3) raster increments z, rows first:
-    an element's row offset plus its exclusive in-row prefix."""
-    rows = log_step_scan(z, 1)
-    excl = torch.cat([torch.zeros_like(rows[:, :1]), rows[:, :-1]], 1)
-    tot = log_step_scan(rows[:, -1], 0)
-    off = torch.cat([torch.zeros_like(tot[:1]), tot[:-1]])
-    return off[:, None] + excl
 
 
 def _brownian(g):

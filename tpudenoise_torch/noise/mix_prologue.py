@@ -59,7 +59,7 @@ def quant_palette(ka, image: torch.Tensor, kk: int) -> torch.Tensor:
     the u8 LAB of the (subsampled) pixels, then the BGR of the truncated
     centres."""
     flat = image.reshape(-1, 3).to(torch.float32)
-    fit_idx, first, gumbel = kmeans.fit_draws(ka, flat.shape[0])
+    fit_idx, first, gumbel = kmeans.fit_draws(ka, flat.shape[0], kk)
     rows = gumbel if fit_idx is None else np.concatenate(
         [fit_idx.astype(np.float32)[None], gumbel])   # indices < 2^24
     rows = torch.from_numpy(rows).to(image.device)     # one transfer

@@ -6,35 +6,49 @@ Ported routes (the reference's `use_pallas=True` routes):
   standalone post-pass of the same filter (`pipeline.py:475-568`);
 * mixed noise (`_fused_mix_pipeline`, `pipeline.py:323-390`): the mix
   prologue, then the fused mix kernel, or the fused mix + bilateral
-  kernel when the plan's post-pass is bilateral;
-* single-kind `bloom` on the generic route (`pipeline.py:110-117`).
-Seeds and draws come from the numpy threefry port (`core.prng`), so they
-equal the reference's.  Every other plan raises NotImplementedError;
-nothing falls back to another route.
+  kernel when the plan's post-pass is bilateral, or a 3x3 stencil
+  post-pass after the fused mix kernel;
+* every other single-kind plan (`pipeline.py:570-629`): the threefry
+  generators (`generators.py`, `samplers.py`, `kmeans.quantize_colors`;
+  bloom through the bloom kernel), then the per-spec denoise and the
+  post-pass as 3x3 stencils; a plan whose only denoise stages are
+  bilateral runs each as one pass of the bilateral kernel
+  (`_pallas_bilateral_pipeline`, `pipeline.py:393-436`).
+Seeds and key algebra come from the numpy threefry port (`core.prng`),
+and the generators' fields from its device draws, so the draws equal the
+reference's.  Wavelet and curvelet denoising, `masked` on the per-image
+routes, `fast_rng` and the XLA mix scan raise NotImplementedError naming
+their ROADMAP items; nothing falls back to another route.
 
 The returned callable `fn(key, images)` takes a (2,) uint32 key and
 (B, H, W, 3) uint8 or float32 u8-domain images on any device and returns
 float32; `fn.keyed(keys, images)` takes one key per image ((B, 2)) and
 `fn.backend` names the route.  `fn.masked(keys, images, hw)` is `keyed`
 for the sap and gaussian routes (stencils with no dependence on the
-valid extent); the mix and bloom routes do not port it yet.
+valid extent); the other routes do not port it yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from tpudenoise_torch.core import prng
+from tpudenoise_torch.denoise import stencils
+from tpudenoise_torch.denoise.bilateral import bilateral_batched
+from tpudenoise_torch.noise import generators as G
 from tpudenoise_torch.noise.bloom import bloom_batched
 from tpudenoise_torch.noise.fused_kernels import (fused_gaussian_blur,
                                                   fused_sap_median_batched)
 from tpudenoise_torch.noise.generators import bloom_params
+from tpudenoise_torch.noise.kmeans import quantize_colors
 from tpudenoise_torch.noise.mix_kernels import (fused_mix_bilateral,
                                                 fused_mix_noise)
 from tpudenoise_torch.noise.mix_prologue import mix_prologue, plan_tables
 from tpudenoise_torch.noise.spec import (GAUSSIAN_RANDOM_LEVELS, Denoise,
-                                         Kind, NoisePlan, parse)
+                                         Kind, NoisePlan, NoiseSpec, parse)
 
 _SEED_MAX = 2**31 - 1
 
@@ -126,70 +140,196 @@ class _PerImagePipeline:
 
     def masked(self, keys, images: torch.Tensor, hw) -> torch.Tensor:
         raise NotImplementedError(
-            f'{self.backend}: the bucketed (masked) noise path runs the '
-            f'XLA generators in the reference and is not ported yet '
-            f'(ROADMAP Queue 1 items 6 and 9)')
-
-
-def _mix_pipeline(plan: NoisePlan) -> _PerImagePipeline:
-    kinds, eb, el = plan_tables(plan.specs)
-    bilateral = plan.post_denoise == Denoise.BILATERAL
-
-    def apply(keys, images):
-        args = mix_prologue(keys, images, kinds, eb, el)
-        run = fused_mix_bilateral if bilateral else fused_mix_noise
-        return run(_to_u8(images), *args, kinds)
-
-    return _PerImagePipeline(
-        'cuda:fused_mix' + ('+bilateral' if bilateral else ''), apply)
-
-
-def _bloom_pipeline() -> _PerImagePipeline:
-    def apply(keys, images):
-        h, w = images.shape[1:3]
-        params = bloom_params(keys, h, w)
-        return bloom_batched(images, torch.from_numpy(params).to(
-            images.device))
-
-    return _PerImagePipeline('cuda:bloom', apply)
+            f'{self.backend}: the bucketed (masked) noise path, whose '
+            f'generators follow each image\'s valid extent, is not ported '
+            f'yet (ROADMAP Queue 1 items 6 and 9)')
 
 
 _POST_ITEM = {Denoise.WAVELET: 'Queue 1 item 10',
               Denoise.CURVELET: 'Queue 1 item 13'}
 
 
+_MIX_SCAN = ('the XLA mix scan (a per-image switch over a mix table) is not '
+             'ported: mixes take the fused mix kernels (ROADMAP Queue 1 '
+             'item 9)')
+
+
+def _refuse(denoise: Denoise):
+    raise NotImplementedError(
+        f'the {denoise.name.lower()} denoiser is not ported yet (ROADMAP '
+        f'{_POST_ITEM[denoise]})')
+
+
+# the per-spec denoise and the post-pass filters: (image, round_u8)
+_FILTERS = {
+    Denoise.GAUS_BLUR: lambda im, r: stencils.gaussian_blur3(im, round_u8=r),
+    Denoise.MEAN: lambda im, r: stencils.mean3(im, round_u8=r),
+    Denoise.MEDIAN: lambda im, r: stencils.median3(im),
+    Denoise.BILATERAL: lambda im, r: stencils.bilateral(im),
+}
+
+
+def _noisy(spec: NoiseSpec, keys, img: torch.Tensor):
+    """The generator of one spec over (B, H, W, 3) float32 u8-domain
+    images, one key each: (noisy images, 'unit' or 'u8' domain)."""
+    kind, lvl = spec.kind, spec.level
+    if kind == Kind.GAUSSIAN:
+        if spec.is_random_level:
+            kl, kn = np.moveaxis(prng.split(keys), -2, 0)
+            idx = prng.randint(kl, (), 0, len(GAUSSIAN_RANDOM_LEVELS))
+            var = torch.from_numpy(np.asarray(
+                GAUSSIAN_RANDOM_LEVELS, np.float32)[idx]).to(img.device)
+        else:
+            kn, var = keys, lvl
+        return G.gaussian(kn, img, var), 'unit'
+    if kind == Kind.POISSON:
+        return G.poisson(keys, img), 'unit'
+    if kind == Kind.SAP:
+        return G.salt_and_pepper(keys, img, lvl), 'unit'
+    if kind == Kind.SPECKLE:
+        return G.speckle(keys, img, lvl), 'unit'
+    if kind == Kind.UNIFORM:
+        return G.uniform_add(keys, img, lvl), 'unit'
+    if kind == Kind.GAMMA:
+        return G.gamma_add(keys, img, lvl), 'unit'
+    if kind == Kind.RAYLEIGH:
+        return G.rayleigh_add(keys, img, lvl), 'unit'
+    if kind == Kind.BROWNIAN:
+        return G.brownian(keys, img, lvl), 'u8'
+    if kind == Kind.PERIODIC:
+        return G.periodic(img, lvl), 'u8'
+    if kind == Kind.QUANT:
+        return quantize_colors(keys, img, int(lvl)), 'u8'
+    if kind == Kind.BLOOM:
+        params = bloom_params(keys, img.shape[1], img.shape[2])
+        return bloom_batched(img, torch.from_numpy(params).to(
+            img.device)), 'u8'
+    if kind == Kind.SHADER:
+        return G.shader(img), 'u8'
+    return img, 'u8'                                    # ORIGINAL
+
+
+def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor) -> torch.Tensor:
+    """One (kind, level, denoise) combination over (B, H, W, 3) float32
+    u8-domain images with one key each ((B, 2) uint32).  Returns u8-domain
+    float32, or the [0, 1] floats of plain gaussian (a reference quirk)."""
+    noisy, dom = _noisy(spec, keys, images)
+    u8 = G.wrap_cast_u8(255.0 * noisy) if dom == 'unit' else noisy
+    d = spec.denoise
+    if d == Denoise.NONE:
+        if spec.unit_float_output and spec.kind == Kind.GAUSSIAN:
+            return noisy
+        return u8
+    if d in _POST_ITEM:
+        _refuse(d)
+    return _FILTERS[d](u8, True)
+
+
+def apply_post(denoise: Denoise, images: torch.Tensor,
+               unit_float: bool) -> torch.Tensor:
+    """The standalone denoise post-pass; the 3x3 filters round only for
+    u8-domain inputs."""
+    if denoise == Denoise.NONE:
+        return images
+    if denoise in _POST_ITEM:
+        _refuse(denoise)
+    return _FILTERS[denoise](images, not unit_float)
+
+
+def _apply_specs_batched(specs, keys, images: torch.Tensor) -> torch.Tensor:
+    """Per-image spec application over a batch: one spec for every image.
+    A mix table runs on the fused kernels instead."""
+    if len(specs) != 1:
+        raise NotImplementedError(_MIX_SCAN)
+    return apply_spec(specs[0], keys, images)
+
+
+def _post_batched_for(plan: NoisePlan, unit_float: bool):
+    """The plan's post-pass over a batch, the same filter for every
+    image."""
+    def post(out):
+        return apply_post(plan.post_denoise, out, unit_float)
+    return post
+
+
+def _mix_pipeline(plan: NoisePlan) -> _PerImagePipeline:
+    kinds, eb, el = plan_tables(plan.specs)
+    bilateral = plan.post_denoise == Denoise.BILATERAL
+    post = None
+    if plan.post_denoise not in (Denoise.NONE, Denoise.BILATERAL):
+        post = _post_batched_for(
+            plan, all(s.unit_float_output for s in plan.specs))
+
+    def apply(keys, images):
+        args = mix_prologue(keys, images, kinds, eb, el)
+        run = fused_mix_bilateral if bilateral else fused_mix_noise
+        out = run(_to_u8(images), *args, kinds)
+        return out if post is None else post(out)
+
+    return _PerImagePipeline(
+        'cuda:fused_mix' + ('+bilateral' if bilateral else ''), apply)
+
+
+def _bilateral_pipeline(spec: NoiseSpec, n_stages: int) -> _PerImagePipeline:
+    """The generator without its bilateral, then each bilateral stage (the
+    spec's and the post-pass) as one pass of the bilateral kernel over
+    the batch."""
+    stripped = (dataclasses.replace(spec, denoise=Denoise.NONE)
+                if spec.denoise == Denoise.BILATERAL else spec)
+
+    def apply(keys, images):
+        out = _apply_specs_batched((stripped,), keys,
+                                   images.to(torch.float32))
+        for _ in range(n_stages):
+            out = bilateral_batched(out)
+        return out
+
+    return _PerImagePipeline(f'cuda:bilateral_x{n_stages}', apply)
+
+
+def _generic_pipeline(plan: NoisePlan) -> _PerImagePipeline:
+    """The generator (threefry draws; bloom through the bloom kernel), its
+    denoise and the post-pass."""
+    post = _post_batched_for(plan, plan.specs[0].unit_float_output)
+
+    def apply(keys, images):
+        return post(_apply_specs_batched(plan.specs, keys,
+                                         images.to(torch.float32)))
+
+    return _PerImagePipeline('cuda:generic', apply)
+
+
 def make_pipeline(plan: NoisePlan | str, mode: str = 'TEST',
-                  strict_ref: bool = False):
+                  strict_ref: bool = False, fast_rng: bool = False):
     """Build the pipeline for a parsed plan (or raw noise string)."""
+    if fast_rng:
+        raise NotImplementedError(
+            'fast_rng (counter-hash draws for every generator) is not ported '
+            'yet (ROADMAP Queue 1 item 8)')
     if isinstance(plan, str):
         plan = parse(plan, mode=mode, strict_ref=strict_ref)
     specs = plan.specs
-    if len(specs) > 1 and all(s.denoise == Denoise.NONE
-                              and not s.is_random_level for s in specs):
-        if plan.post_denoise in (Denoise.NONE, Denoise.BILATERAL):
+    for d in (plan.post_denoise, *(s.denoise for s in specs)):
+        if d in _POST_ITEM:
+            _refuse(d)
+    if len(specs) > 1:
+        if all(s.denoise == Denoise.NONE and not s.is_random_level
+               for s in specs):
             return _mix_pipeline(plan)
-        raise NotImplementedError(
-            f'noise plan {plan.raw!r}: the {plan.post_denoise.name.lower()} '
-            f'post-pass after the fused mix is not ported yet (ROADMAP '
-            f'{_POST_ITEM.get(plan.post_denoise, "Queue 1 item 3")})')
-    if len(specs) == 1:
-        s = specs[0]
-        if (s.kind == Kind.BLOOM and s.denoise == Denoise.NONE
-                and plan.post_denoise == Denoise.NONE):
-            return _bloom_pipeline()
-        if (s.kind == Kind.SAP and s.denoise == Denoise.MEDIAN
-                and plan.post_denoise in (Denoise.MEDIAN, Denoise.NONE)):
-            return _sap_pipeline(s.level,
-                                 plan.post_denoise == Denoise.MEDIAN)
-        if (s.kind == Kind.GAUSSIAN and s.denoise == Denoise.GAUS_BLUR
-                and plan.post_denoise in (Denoise.GAUS_BLUR, Denoise.NONE)):
-            levels = (GAUSSIAN_RANDOM_LEVELS if s.is_random_level
-                      else [s.level])
-            return _gauss_pipeline(levels,
-                                   plan.post_denoise == Denoise.GAUS_BLUR)
-    raise NotImplementedError(
-        f'noise plan {plan.raw!r}: the ported routes are fused '
-        f'sap+median, gaussian+blur, the fused mixes (no post-pass or '
-        f'bilateral) and bloom; the threefry generators, the standalone '
-        f'bilateral and the stencils are ROADMAP Queue 1 items 3, 8 and 9 '
-        f'and Queue 2 item 5')
+        raise NotImplementedError(_MIX_SCAN)
+    s = specs[0]
+    post = plan.post_denoise
+    if (s.kind == Kind.SAP and s.denoise == Denoise.MEDIAN
+            and post in (Denoise.MEDIAN, Denoise.NONE)):
+        return _sap_pipeline(s.level, post == Denoise.MEDIAN)
+    if (s.kind == Kind.GAUSSIAN and s.denoise == Denoise.GAUS_BLUR
+            and post in (Denoise.GAUS_BLUR, Denoise.NONE)):
+        levels = (GAUSSIAN_RANDOM_LEVELS if s.is_random_level
+                  else [s.level])
+        return _gauss_pipeline(levels, post == Denoise.GAUS_BLUR)
+    stages = ((s.denoise == Denoise.BILATERAL)
+              + (post == Denoise.BILATERAL))
+    if (stages and s.denoise in (Denoise.NONE, Denoise.BILATERAL)
+            and post in (Denoise.NONE, Denoise.BILATERAL)):
+        return _bilateral_pipeline(s, stages)
+    return _generic_pipeline(plan)
