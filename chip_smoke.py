@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
-  2. build: nvcc builds the six kernel sources of tpudenoise_torch/csrc
-     (nine kernels), one nvcc process each, all at once;
+  2. build: nvcc builds the seven kernel sources of tpudenoise_torch/csrc
+     (twelve kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
      sap+median (8, 600, 1000, 3) u8 bit-exact; gaussian+blur same shape
@@ -21,11 +21,16 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      the standalone bilateral (8, 600, 1000, 3) f32 bit-exact; the
      per-image sap + median entry on the same shape bit-exact; the
      threefry fields for 8 keys x 1.8M elements: bits and uniforms
-     bit-exact, normals within 2 ulp;
+     bit-exact, normals within 2 ulp; the stage-cut sap + median kernels
+     (the profiling forks) on the edge-padded raster of (8, 600, 1000, 3)
+     f32 and u8 images, every stage, and the full stage on a random
+     raster, bit-exact, and again at the profiling scripts' size (B=128),
+     where each is timed;
   4. correctness of the whole chunk on a small input: the card's
      detect_chunk (f32) against the same chunk run on the CPU through the
      plain versions, for sap, gauss, noise_mix_var_all_bilateral,
-     speckle_bilateral_var1.0, uniform_mean_var0.6 and quant_var10;
+     speckle_bilateral_var1.0, uniform_mean_var0.6 and quant_var10, and
+     the sap chunk with a seeded res50;
   5. main path: detect_chunk with a seeded-init vgg16 VOC-21 Faster R-CNN
      in bf16 on (8, 600, 1000, 3) u8 frames, bucket (608, 1024), for
      sap_median_var0.4, gaussian_gaus_blur_var0.1,
@@ -36,8 +41,14 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      before each path and read after it, and the path's kernels must have
      launched; then the per-image sap + median entry's own path on the
      sap chunk's images and seeds, equal to the batched kernel's result;
+     then the same chunk with a seeded-init ResNet-101 (bench_config6's
+     model) for sap_median_var0.4; then the profiling path: the two
+     profiling entry points (`profile_sap_breakdown.run` / `u8_run` and
+     `profile_fused.kernel_only_output`) once each at B=128, each equal
+     to its plain version;
   6. where the time goes: two chunks of each string under torch.profiler
-     (device kernel time, idle share, the port's own kernels' share).
+     (device kernel time, idle share, the port's own kernels' share), and
+     of the res101 sap chunk.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
@@ -50,7 +61,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -58,6 +68,9 @@ import numpy as np
 import torch
 
 from tpudenoise_torch import cuda_build
+from tpudenoise_torch.benchmarks import profile_fused as pf
+from tpudenoise_torch.benchmarks import profile_sap_breakdown as psb
+from tpudenoise_torch.benchmarks.timing import card_line, time_ms
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.denoise import bilateral as bil
@@ -83,7 +96,13 @@ SMALL_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
                 'noise_mix_var_all_bilateral', 'speckle_bilateral_var1.0',
                 'uniform_mean_var0.6', 'quant_var10')
 SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
-           'threefry')
+           'threefry', 'sap_stages')
+# the res101 main path: bench_config6's model and noise
+RES_NOISES = ('sap_median_var0.4',)
+# the profiling scripts' batch and the tile heights their rows are timed at
+PROFILE_B = 128
+PROFILE_TILES = {'sap_stages_f32': 56, 'sap_stages_u8': 120,
+                 'sap_full_padded': 56}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 # operations per element (one of B*H*W*3), counted from each plain
@@ -94,6 +113,9 @@ OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 OPS = {'sap_median': 15 + 4 + 2 * 16, 'gauss_blur': 2 * 15 + 12 + 6 + 2 * 12,
        'bilateral': 312, 'bloom': 430, 'bits': 78, 'uniform': 82,
        'normal': 104}
+# the stage-cut sap + median kernel, per output element
+STAGE_OPS = {'copy': 0, 'noise': 15 + 4, 'med1': 15 + 4 + 16,
+             'full': OPS['sap_median']}
 # mix kernels, by kind (Kind value): the kind's generator per element
 MIX_OPS = {0: 0, 1: 45, 2: 330, 3: 20, 4: 47, 5: 110, 6: 22, 7: 60, 8: 8,
            9: 300, 10: 25, 11: 430, 12: 6}
@@ -119,26 +141,6 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
                 # no single PyTorch call computes any of these functions
                 library_ms=None)
-
-
-def card_line() -> str:
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, warm: int = 2) -> float:
-    """Mean device time of fn() over iters runs, by CUDA events."""
-    for _ in range(warm):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def near_threshold_pairs(rng, k: int, t: float = 0.7):
@@ -357,6 +359,102 @@ def check_threefry(dev) -> list:
         **bound(4 * B * n, OPS['normal'] * B * n))]
 
 
+def check_sap_stages(dev) -> list:
+    """Kernels 9-11, the stage-cut forks of kernel 1, against their plain
+    versions at (8, 600, 1000, 3), bit-exact: every stage on the
+    edge-padded raster of f32 and u8 images (its full stage, sliced, must
+    also equal kernel 1), and the full stage of `sap_full_padded` on a
+    random raster whose halo rows and pad lanes hold arbitrary values.
+    Then each stage is held bit-exact again and timed at the profiling
+    scripts' size (B = 128, the row's tile height); the row's own numbers
+    are the full stage's, and the copy stage has one PyTorch call, a
+    slice's clone."""
+    rng = np.random.RandomState(9)
+    w3 = 3 * W
+    seeds = torch.from_numpy(rng.randint(0, 2**31 - 1, B).astype(
+        np.int32)).to(dev)
+    raw = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    big_raw = torch.from_numpy(rng.randint(0, 256, (PROFILE_B, H, W, 3))
+                               .astype(np.uint8)).to(dev)
+    big_seeds = torch.arange(PROFILE_B, dtype=torch.int32, device=dev)
+    rows = []
+    for name, dtype, line in (
+            ('sap_stages_f32', torch.float32,
+             'benchmarks/profile_sap_breakdown.py:105'),
+            ('sap_stages_u8', torch.uint8,
+             'benchmarks/profile_sap_breakdown.py:189'),
+            ('sap_full_padded', torch.float32,
+             'benchmarks/profile_fused.py:48')):
+        tile_h = PROFILE_TILES[name]
+        _, w3p, hp = psb.raster_geometry(H, W, tile_h)
+        if name == 'sap_full_padded':
+            small = torch.from_numpy(rng.randint(
+                0, 256, (B, hp + 2 * fk.HALO, w3p)).astype(np.float32)
+            ).to(dev)
+            big = torch.from_numpy(rng.randint(
+                0, 256, (PROFILE_B, hp + 2 * fk.HALO, w3p)).astype(
+                    np.float32)).to(dev)
+            stages = ('full',)
+
+            def run(r, s, stage):
+                return fk.sap_full_padded(r, s, H, w3, 0.4)
+        else:
+            small = psb.pad_raster(raw.to(dtype), tile_h)
+            big = psb.pad_raster(big_raw.to(dtype), tile_h)
+            stages = fk.STAGES
+
+            def run(r, s, stage):
+                return fk.sap_stages(r, s, H, w3, stage)
+        err = 0.0
+        for stage in stages:
+            got = run(small, seeds, stage)
+            want = fk.sap_stages_plain(small, seeds, H, w3, stage)
+            torch.cuda.synchronize()
+            bad = (got != want).sum().item()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            log(f'kernel {name} {stage}: {bad} of {got.numel()} elements '
+                f'differ (bit-exact required)')
+            if bad:
+                raise AssertionError(f'{name} {stage} differs from its plain '
+                                     f'version')
+            if stage == 'full' and name != 'sap_full_padded':
+                eval_noise = fk.fused_sap_median_batched(raw.to(dtype), seeds,
+                                                         0.4, True)
+                if not torch.equal(got[:, :H, :w3].reshape(B, H, W, 3),
+                                   eval_noise):
+                    raise AssertionError(f'{name} full differs from the '
+                                         f'eval noise kernel')
+        per_stage = {}
+        for stage in stages:
+            # at the profiling path's own shape too, bit-exact
+            out = run(big, big_seeds, stage)
+            if not torch.equal(out, fk.sap_stages_plain(big, big_seeds, H,
+                                                        w3, stage)):
+                raise AssertionError(f'{name} {stage} differs from its plain '
+                                     f'version at B={PROFILE_B}')
+            log(f'kernel {name} {stage} at B={PROFILE_B}: equal to its plain '
+                f'version')
+            per_stage[stage] = dict(
+                ms=time_ms(lambda: run(big, big_seeds, stage), 20),
+                plain_ms=time_ms(lambda: fk.sap_stages_plain(
+                    big, big_seeds, H, w3, stage), 2, 1),
+                # the raster read once, the output written once
+                **bound((big.numel() + out.numel()) * big.element_size(),
+                        STAGE_OPS[stage] * out.numel()))
+            del out
+        if 'copy' in per_stage:
+            per_stage['copy']['library_ms'] = time_ms(
+                lambda: big[:, fk.HALO:fk.HALO + hp].clone(), 20)
+        del big, small
+        rows.append(dict(
+            name=name, route='cuda',
+            source='tpudenoise_torch/csrc/sap_stages.cu', replaces=line,
+            max_abs_err=err, batch=PROFILE_B, tile_h=tile_h,
+            stages=per_stage, **per_stage['full']))
+    return rows
+
+
 def _mix_errors(got, want):
     """Per-entry (max distance, changed share) of kernel against plain:
     mod-256 distance for the wrapped kinds, absolute for gaussian's
@@ -434,25 +532,29 @@ def _dets(boxes, scores, mask, i, c):
 
 
 def check_small_chunk(dev):
-    """The chunk on the card (f32) against the same chunk on the CPU."""
-    cfg = default_config()
-    model = FasterRCNN('vgg16', num_classes=21, cfg=cfg, dtype=torch.float32)
-    params = model.init(torch.Generator().manual_seed(0))
+    """The chunk on the card (f32) against the same chunk on the CPU:
+    vgg16 for every small string, res50 for sap."""
     rng = np.random.RandomState(4)
     raw = torch.from_numpy(rng.randint(0, 256, (2, 120, 200, 3)).astype(
         np.uint8))
     geom = torch.tensor([[120, 200, 120, 200, 1.0]] * 2)
     bucket = (128, 224)
     res = {}
-    for d in ('cpu', dev):
-        model.to(d)
-        p = {k: v.to(d) for k, v in params.items()}
-        for noise in SMALL_NOISES:
-            out = detect_chunk(model, p, prng.PRNGKey(3), [0, 1],
-                               raw.to(d), geom.to(d), geom[:, 2:].to(d),
-                               make_pipeline(noise), bucket)
-            res[d, noise] = [t.cpu().numpy() for t in out]
-    for noise in SMALL_NOISES:
+    for backbone, noises in (('vgg16', SMALL_NOISES),
+                             ('res50', ('sap_median_var0.4',))):
+        model = FasterRCNN(backbone, num_classes=21, cfg=default_config(),
+                           dtype=torch.float32)
+        params = model.init(torch.Generator().manual_seed(0))
+        for d in ('cpu', dev):
+            model.to(d)
+            p = {k: v.to(d) for k, v in params.items()}
+            for noise in noises:
+                out = detect_chunk(model, p, prng.PRNGKey(3), [0, 1],
+                                   raw.to(d), geom.to(d), geom[:, 2:].to(d),
+                                   make_pipeline(noise), bucket)
+                res[d, f'{backbone} {noise}'] = [t.cpu().numpy()
+                                                 for t in out]
+    for noise in sorted({n for _, n in res}):
         (cb, cs, cm), (gb, gs, gm) = res['cpu', noise], res[dev, noise]
         matched = total = 0
         for i in range(2):
@@ -485,6 +587,7 @@ PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched', MASKS),
                                              'bilateral_batched', MASKS),
                 'poisson': ('threefry_draw', MASKS)}
 ENTRY_PATH = 'fused_sap_median entry'
+PROFILE_PATH = 'profiling entry points'
 
 
 def zero_counts():
@@ -502,7 +605,10 @@ def launch_counts() -> dict:
             'fused_mix_bilateral': mk.launches['mix_bilateral'],
             'bloom_batched': bl.launches['bloom'],
             'bilateral_batched': bil.launches['bilateral'],
-            'threefry_draw': prng.launches['threefry']}
+            'threefry_draw': prng.launches['threefry'],
+            'sap_stages_f32': fk.launches['sap_stages_f32'],
+            'sap_stages_u8': fk.launches['sap_stages_u8'],
+            'sap_full_padded': fk.launches['sap_full_padded']}
 
 
 def kinds_drawn(noise: str, key, idx) -> dict:
@@ -517,11 +623,11 @@ def kinds_drawn(noise: str, key, idx) -> dict:
     return {n: names.count(n) for n in sorted(set(names))}
 
 
-def chunk_inputs(dev):
-    """The main path's model (seeded vgg16 VOC-21, bf16), its params, the
-    (8, 600, 1000, 3) u8 frames, their geometry and the eval key."""
+def chunk_inputs(dev, backbone: str):
+    """A main path's model (seeded VOC-21 Faster R-CNN, bf16), its params,
+    the (8, 600, 1000, 3) u8 frames, their geometry and the eval key."""
     cfg = default_config()
-    model = FasterRCNN('vgg16', num_classes=21, cfg=cfg)
+    model = FasterRCNN(backbone, num_classes=21, cfg=cfg)
     params = model.init(torch.Generator().manual_seed(0))
     model.to(dev)
     params = {k: v.to(dev) for k, v in params.items()}
@@ -533,11 +639,14 @@ def chunk_inputs(dev):
         cfg.RNG_SEED)
 
 
-def main_path(inputs, card: str) -> dict:
+def main_path(inputs, card: str, noises, tag: str = '') -> dict:
+    """detect_chunk for each noise string: 3 warm and 5 timed chunks, the
+    launch counters zeroed before and read after; results keyed
+    `tag + noise`."""
     model, params, raw, geom, infos, key = inputs
     stages = ('noise', 'prep', 'forward', 'postprocess')
     result = {}
-    for noise in NOISES:
+    for noise in noises:
         noise_fn = make_pipeline(noise)
         walls, per_stage = [], {s: [] for s in stages}
         zero_counts()
@@ -574,28 +683,35 @@ def main_path(inputs, card: str) -> dict:
             raise AssertionError(f'{noise}: non-finite detections')
         if not kept.any():
             raise AssertionError(f'{noise}: no detections kept')
+        final = 0
         for j in range(B):
-            if limit_per_image(bx[j], sc[j], kept[j], 100).sum() > 100:
+            # at most 100 kept, but for ties at the cut (the bf16 heads of
+            # a seeded res101 tie often): as the reference, keep them all
+            lim = sc[j][limit_per_image(bx[j], sc[j], kept[j], 100)]
+            if len(lim) > 100 and (lim > lim.min()).sum() >= 100:
                 raise AssertionError('limit_per_image did not cap at 100')
+            final += len(lim)
         med = statistics.median(walls)
-        result[noise] = dict(
+        name = tag + noise
+        result[name] = dict(
             img_per_s=B / med, img_per_s_mean=B * len(walls) / sum(walls),
             chunk_ms=med * 1e3,
             stage_ms={s: statistics.median(v) for s, v in per_stage.items()},
             kept_per_image=float(kept.sum() / B),
+            # after the cap of 100 per image; above 100 only for ties
+            final_per_image=final / B,
             launches={k: counts[k] for k in PATH_KERNELS[noise]},
             kinds_timed=kinds_drawn(noise, key, range(3 * B, 8 * B)))
-        log(f'main path {noise}: {B / med:.1f} img/s (median of 5 chunks, '
+        r = result[name]
+        log(f'main path {name}: {B / med:.1f} img/s (median of 5 chunks, '
             f'{med * 1e3:.2f} ms/chunk of {B}; mean '
-            f'{result[noise]["img_per_s_mean"]:.1f} img/s); stages ms: '
-            + ', '.join(f'{s} {v:.2f}'
-                        for s, v in result[noise]['stage_ms'].items())
-            + f'; {kept.sum() / B:.1f} kept/image; launches '
-            f'{json.dumps(result[noise]["launches"])}'
-            + (f'; kinds in the timed chunks '
-               f'{json.dumps(result[noise]["kinds_timed"])}'
-               if result[noise]['kinds_timed'] else '') + f'  [{card}]')
-    result[ENTRY_PATH] = entry_path(raw, key)
+            f'{r["img_per_s_mean"]:.1f} img/s); stages ms: '
+            + ', '.join(f'{s} {v:.2f}' for s, v in r['stage_ms'].items())
+            + f'; {kept.sum() / B:.1f} kept/image, {final / B:.1f} after '
+            f'the cap of 100; launches '
+            f'{json.dumps(r["launches"])}'
+            + (f'; kinds in the timed chunks {json.dumps(r["kinds_timed"])}'
+               if r['kinds_timed'] else '') + f'  [{card}]')
     return result
 
 
@@ -623,13 +739,64 @@ def entry_path(raw, key) -> dict:
     return dict(launches={'fused_sap_median': counts['fused_sap_median']})
 
 
+def profiling_path(dev, card: str) -> dict:
+    """The profiling entry points at the scripts' size (B = 128), counters
+    zeroed before and read after: `profile_sap_breakdown.run` (f32) and
+    `u8_run` at their full stage, whose output must equal the plain eval
+    noise, and `profile_fused.kernel_only_output`, whose whole (B, hp, w3p)
+    output must equal the plain full stage on the same raster.  Then the
+    images/s that the scripts print for the same three calls."""
+    rng = np.random.RandomState(3)
+    f32 = torch.from_numpy(rng.randint(0, 256, (PROFILE_B, H, W, 3)).astype(
+        np.float32)).to(dev)
+    u8 = f32.to(torch.uint8)
+    seeds = torch.arange(PROFILE_B, dtype=torch.int32, device=dev)
+    t_f32, t_u8 = PROFILE_TILES['sap_stages_f32'], PROFILE_TILES[
+        'sap_stages_u8']
+    zero_counts()
+    outs = (psb.run(f32, seeds, t_f32, 'full'),
+            psb.u8_run(u8, seeds, t_u8, 'full'),
+            pf.kernel_only_output(PROFILE_TILES['sap_full_padded'], dev))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    names = ('sap_stages_f32', 'sap_stages_u8', 'sap_full_padded')
+    missing = [k for k in names if not counts[k]]
+    if missing:
+        raise AssertionError(f'the profiling path did not launch {missing}')
+    for out, img in zip(outs, (f32, u8)):
+        if not torch.equal(out, fk.fused_sap_median_plain(img, seeds, 0.4,
+                                                          True)):
+            raise AssertionError('a profiling stage differs from the plain '
+                                 'eval noise')
+    _, w3p, hp = psb.raster_geometry(H, W, PROFILE_TILES['sap_full_padded'])
+    want = fk.sap_stages_plain(
+        *pf.padded_raster(PROFILE_TILES['sap_full_padded'], dev), H, 3 * W,
+        'full')
+    if outs[2].shape != (PROFILE_B, hp, w3p) or not torch.equal(outs[2],
+                                                                want):
+        raise AssertionError('kernel_only output differs from its plain '
+                             'version')
+    del outs, want
+    ips = {f'run full tile_h={t_f32}': psb.bench(
+               lambda im, s: psb.run(im, s, t_f32, 'full'), f32, seeds),
+           f'u8_run full tile_h={t_u8}': psb.bench(
+               lambda im, s: psb.u8_run(im, s, t_u8, 'full'), u8, seeds),
+           f'kernel_only tile_h={PROFILE_TILES["sap_full_padded"]}':
+               pf.kernel_only(PROFILE_TILES['sap_full_padded'], dev)}
+    log(f'{PROFILE_PATH}: launches {json.dumps({k: counts[k] for k in names})}'
+        f'; img/s ' + ', '.join(f'{k} {v:.1f}' for k, v in ips.items())
+        + f'  [{card}]')
+    return dict(launches={k: counts[k] for k in names}, img_per_s=ips)
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names them
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
                'mix_noise_kernel', 'mix_bilateral_kernel', 'brownian_',
-               'bloom_kernel', 'bilateral_kernel', 'threefry_kernel')
+               'bloom_kernel', 'bilateral_kernel', 'threefry_kernel',
+               'sap_stages_kernel')
 
 
-def profile_paths(inputs, card: str) -> dict:
+def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
     """Where a chunk's device time goes: for each noise string, one warm
     chunk, then 2 chunks (images 24-39) under torch.profiler.  Reports per
     chunk the wall time (the profiler's own cost included), the device
@@ -638,8 +805,9 @@ def profile_paths(inputs, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     model, params, raw, geom, infos, key = inputs
     out = {}
-    for noise in NOISES:
+    for noise in noises:
         fn = make_pipeline(noise)
+        name = tag + noise
 
         def chunk(it):
             detect_chunk(model, params, key, list(range(B * it, B * it + B)),
@@ -660,15 +828,15 @@ def profile_paths(inputs, card: str) -> dict:
         own = sum(e.self_device_time_total for e in kern
                   if any(k in e.key for k in OWN_KERNELS)) / 2e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        out[noise] = dict(
+        out[name] = dict(
             wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
             own_kernels_ms=own, kernel_names=len(kern),
             top=[(e.key[:90], e.self_device_time_total / 2e3, e.count // 2)
                  for e in top])
-        log(f'profile {noise}: chunk {wall:.2f} ms, device {busy:.2f} ms, '
+        log(f'profile {name}: chunk {wall:.2f} ms, device {busy:.2f} ms, '
             f'idle {1.0 - busy / wall:.1%}, port kernels {own:.3f} ms; top '
             f'(name, ms/chunk, calls): '
-            + '; '.join(f'{k} {t:.3f} x{c}' for k, t, c in out[noise]['top'])
+            + '; '.join(f'{k} {t:.3f} x{c}' for k, t, c in out[name]['top'])
             + f'  [{card}]')
     return out
 
@@ -690,11 +858,17 @@ def main() -> int:
     log(f'build: {time.perf_counter() - t0:.1f} s '
         f'(nvcc: {json.dumps(cuda_build.build_seconds)})')
 
-    rows = check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
+    rows = (check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
+            + check_sap_stages(dev))
     check_small_chunk(dev)
-    inputs = chunk_inputs(dev)
-    e2e = main_path(inputs, card)
-    prof = profile_paths(inputs, card)
+    vgg = chunk_inputs(dev, 'vgg16')
+    e2e = main_path(vgg, card, NOISES)
+    e2e[ENTRY_PATH] = entry_path(vgg[2], vgg[5])
+    res = chunk_inputs(dev, 'res101')
+    e2e.update(main_path(res, card, RES_NOISES, 'res101 '))
+    e2e[PROFILE_PATH] = profiling_path(dev, card)
+    prof = profile_paths(vgg, card, NOISES)
+    prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
@@ -702,6 +876,11 @@ def main() -> int:
         log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} main-path launches  [{card}]")
+        for stage, t in r.get('stages', {}).items():
+            log(f"  {r['name']} {stage} (B={r['batch']}, tile_h="
+                f"{r['tile_h']}): kernel {t['ms']:.3f} ms, plain "
+                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
     log(json.dumps({'main_path': e2e, 'profile': prof, 'card': card}))

@@ -225,3 +225,57 @@ def test_generic_route_card_matches_cpu(dev, noise):
     d = (got - want).abs()
     d = torch.minimum(d, 256.0 - d)
     assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize('shape,tile_h', [((2, 37, 29), 8), ((1, 17, 300), 16),
+                                          ((3, 24, 40), 56)])
+@pytest.mark.parametrize('dtype', [torch.uint8, torch.float32])
+def test_sap_stages_kernel_matches_plain(dev, shape, tile_h, dtype):
+    """Every stage on an edge-padded raster, and the full stage on a
+    random raster (pad rows and pad lanes included), bit-exact."""
+    from tpudenoise_torch.benchmarks.profile_sap_breakdown import pad_raster
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(sum(shape) + tile_h)
+    b, h, w = shape
+    im = torch.from_numpy(rng.randint(0, 256, shape + (3,))).to(dtype)
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, b).astype(
+        np.int32))
+    raster = pad_raster(im, tile_h)
+    for stage in fk.STAGES:
+        got = fk.sap_stages(raster.to(dev), seeds.to(dev), h, 3 * w, stage)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
+            raster, seeds, h, 3 * w, stage), atol=0, rtol=0)
+    noise = torch.from_numpy(rng.randint(0, 256, raster.shape).astype(
+        np.float32))
+    got = fk.sap_full_padded(noise.to(dev), seeds.to(dev), h, 3 * w, 0.7)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
+        noise, seeds, h, 3 * w, 'full', 0.7), atol=0, rtol=0)
+
+
+def test_res50_chunk_forward_card_matches_cpu(dev):
+    """A seeded f32 res50 forward on the card against the CPU: the convs
+    sum in another order and the heads run in bf16 in both (their inputs,
+    weights and sums round to 8 bits; the seeded res50's logits reach
+    several units), so each logit within 2**-5 of its RoI's largest; the
+    same proposals kept, each within 0.1 px (the RPN's deltas, from 16
+    strided f32 convs summed in another order, go through exp)."""
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    m = FasterRCNN('res50', num_classes=5, dtype=torch.float32)
+    m.cfg.TEST.RPN_PRE_NMS_TOP_N, m.cfg.TEST.RPN_POST_NMS_TOP_N = 256, 16
+    params = m.init(torch.Generator().manual_seed(0))
+    imgs = torch.from_numpy((np.random.RandomState(1).randn(2, 96, 128, 3)
+                             * 50).astype(np.float32))
+    info = torch.tensor([[96., 128., 1.], [80., 112., 1.]])
+    want = m.forward_test(params, imgs, info)
+    m.to(dev)
+    got = m.forward_test({k: v.to(dev) for k, v in params.items()},
+                         imgs.to(dev), info.to(dev))
+    assert torch.equal(got['roi_mask'].cpu(), want['roi_mask'])
+    diff = (got['cls_score'].cpu() - want['cls_score']).abs()
+    scale = want['cls_score'].abs().amax(-1, keepdim=True)
+    assert (diff <= 2**-5 * scale).all(), (diff / scale).max()
+    for g, w in zip(got['rois'].cpu(), want['rois']):
+        assert ((g[:, None] - w[None]).abs().amax(-1).amin(0) < 0.1).all()

@@ -159,4 +159,20 @@ def test_bf16_default_runs_and_other_backbones_raise():
     assert out['cls_prob'].dtype == torch.float32
     assert torch.isfinite(out['cls_prob']).all()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        FasterRCNN('res101')
+        FasterRCNN('mobile')
+
+
+def test_vgg16_feat_pooled_matches(detectors):
+    """The f32 mean of the feature map over the padded bucket."""
+    jm, jp, tm, params = detectors
+    rng = np.random.RandomState(4)
+    imgs = (rng.randn(2, 160, 224, 3) * 40).astype(np.float32)
+    info = np.asarray([[160, 224, 1.0], [120, 200, 1.0]], np.float32)
+    out = tm.forward_test(params, torch.from_numpy(imgs),
+                          torch.from_numpy(info))
+    assert out['feat_pooled'].shape == (2, 512)
+    for i in range(2):
+        want = jm.forward_test(jp, jnp.asarray(imgs[i]), jnp.asarray(info[i]))
+        np.testing.assert_allclose(out['feat_pooled'][i].numpy(),
+                                   np.asarray(want['feat_pooled']),
+                                   atol=1e-4, rtol=1e-5)

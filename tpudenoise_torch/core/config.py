@@ -1,4 +1,4 @@
-"""The port's default config: only the keys the eval slice reads.
+"""The port's default config: only the keys the port reads.
 
 Values mirror `tpudenoise/core/config.py` key for key (the JAX config
 itself is not imported: `tpudenoise.core` pulls in jax through
@@ -53,6 +53,9 @@ def default_config() -> AttrDict:
     C.ANCHOR_SCALES = [8, 16, 32]
     C.ANCHOR_RATIOS = [0.5, 1, 2]
     C.RPN_CHANNELS = 512
+
+    C.RESNET = AttrDict()
+    C.RESNET.MAX_POOL = False      # False: a direct 7x7 crop, no max-pool
     return C
 
 

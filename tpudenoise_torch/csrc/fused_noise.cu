@@ -32,7 +32,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sap_median.cuh"
+
 namespace {
+
+using namespace sap;  // hash2d, load_f32, store, median9, *_replicate
 
 constexpr int kRows = 16;     // output rows per block
 constexpr int kLanes = 256;   // output lanes per block
@@ -40,66 +44,6 @@ constexpr int kHalo = 6;      // lanes each side: two stencils x 3 lanes
 constexpr int kThreads = 256;
 constexpr int kNoisyW = kLanes + 2 * kHalo;   // lanes c0-6 .. c0+kLanes+5
 constexpr int kMidW = kLanes + kHalo;         // lanes c0-3 .. c0+kLanes+2
-
-__device__ __forceinline__ uint32_t hash2d(uint32_t iy, uint32_t ix,
-                                           uint32_t seed) {
-  uint32_t h = (iy * 0x9E3779B9u) ^ (ix * 0x85EBCA6Bu) ^ (seed * 0xC2B2AE35u);
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float load_f32(const uint8_t* p, size_t i) {
-  return (float)(int)p[i];
-}
-__device__ __forceinline__ float load_f32(const float* p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ void store(uint8_t* p, size_t i, float v) {
-  p[i] = (uint8_t)(int)v;
-}
-__device__ __forceinline__ void store(float* p, size_t i, float v) {
-  p[i] = v;
-}
-
-// ------------------------------------------------------------ median ----
-
-__device__ __forceinline__ float med3(float a, float b, float c) {
-  return fmaxf(fminf(a, b), fminf(fmaxf(a, b), c));
-}
-
-__device__ __forceinline__ void sort3(float a, float b, float c, float& lo,
-                                      float& mid, float& hi) {
-  float l = fminf(a, b);
-  float h = fmaxf(a, b);
-  float m = fminf(h, c);
-  hi = fmaxf(h, c);
-  lo = fminf(l, m);
-  mid = fmaxf(l, m);
-}
-
-// 3x3 median around tile row ty, lanes (tl, tc, tr): the column-sort form
-// of _median3_tile (exact median of the 9 values).
-template <int W>
-__device__ __forceinline__ float median9(const float (*t)[W], int ty, int tl,
-                                         int tc, int tr) {
-  float lo_l, mid_l, hi_l, lo_c, mid_c, hi_c, lo_r, mid_r, hi_r;
-  sort3(t[ty - 1][tl], t[ty][tl], t[ty + 1][tl], lo_l, mid_l, hi_l);
-  sort3(t[ty - 1][tc], t[ty][tc], t[ty + 1][tc], lo_c, mid_c, hi_c);
-  sort3(t[ty - 1][tr], t[ty][tr], t[ty + 1][tr], lo_r, mid_r, hi_r);
-  float maxlo = fmaxf(fmaxf(lo_l, lo_c), lo_r);
-  float minhi = fminf(fminf(hi_l, hi_c), hi_r);
-  return med3(maxlo, med3(mid_l, mid_c, mid_r), minhi);
-}
-
-// BORDER_REPLICATE neighbour lanes: the same channel of the clamped pixel.
-__device__ __forceinline__ int left_replicate(int x) { return x >= 3 ? x - 3 : x; }
-__device__ __forceinline__ int right_replicate(int x, int w3) {
-  return x < w3 - 3 ? x + 3 : x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -121,9 +65,8 @@ sap_median_kernel(const T* __restrict__ in, T* __restrict__ out,
     const int y = min(max(r0 - 2 + ty, 0), h - 1);
     const int x = min(max(c0 - kHalo + tx, 0), w3 - 1);
     const uint32_t bits = hash2d((uint32_t)y, (uint32_t)x, seed);
-    float v = load_f32(in, base + (size_t)y * w3 + x);
-    if (bits < thresh) v = (bits & 1u) ? 255.0f : 0.0f;
-    noisy[ty][tx] = v;
+    noisy[ty][tx] = salt_pepper(load_f32(in, base + (size_t)y * w3 + x),
+                                bits, thresh);
   }
   __syncthreads();
 

@@ -10,6 +10,10 @@
 * `fused_sap_median`: the per-image entry of the sap + median kernel
   (`pallas_kernels.fused_sap_median`, one `pallas_call` per image): f32
   images, one launch of the same CUDA kernel per image.
+* `sap_stages` and `sap_full_padded`: the sap + median kernel cut into
+  stages (copy / noise / med1 / full) on a pre-padded raster, the
+  counterparts of the profiling forks in `benchmarks/profile_sap_breakdown.py`
+  and `benchmarks/profile_fused.py` (kernels of `csrc/sap_stages.cu`).
 
 Images are (B, H, W, 3) uint8 or float32 u8-domain; the output dtype
 follows the input.  A CUDA tensor launches the kernel of
@@ -34,7 +38,12 @@ _TINY = float(np.float32(1e-12))
 _SEED2 = 0x2545F491
 
 # kernel launches, counted where each wrapper launches its kernel
-launches = {'sap_median': 0, 'gauss_blur': 0, 'sap_median_image': 0}
+launches = {'sap_median': 0, 'gauss_blur': 0, 'sap_median_image': 0,
+            'sap_stages_f32': 0, 'sap_stages_u8': 0, 'sap_full_padded': 0}
+
+HALO = 4                      # raster rows above global row 0
+LANES = 128                   # the raster's width is a multiple of this
+STAGES = ('copy', 'noise', 'med1', 'full')
 
 
 # ------------------------------------------------------------- hashing --
@@ -88,10 +97,20 @@ def _shift_rows(t: torch.Tensor, mode: str):
             torch.cat([t[:, 1:], t[:, -2:-1]], 1))
 
 
-def _median3(t: torch.Tensor) -> torch.Tensor:
-    """3x3 median, BORDER_REPLICATE, in the column-sort form of
-    `_median3_tile`; lanes +-3 are a pixel's same-channel neighbours."""
-    a, c = _shift_rows(t, 'replicate')
+def _median3(t: torch.Tensor, w3: int | None = None,
+             pad_rows: bool = True) -> torch.Tensor:
+    """3x3 median of (B, R, W3p) in the column-sort form of
+    `_median3_tile`; lanes +-3 are a pixel's same-channel neighbours.
+
+    Rows: BORDER_REPLICATE, or with pad_rows False only the R - 2 rows
+    whose neighbours the tensor holds.  Lanes: x - 3 replicates where
+    x < 3 and x + 3 where x >= w3 - 3 (w3 defaults to the width; lanes
+    past it are pad lanes, which take themselves as right neighbour)."""
+    w3 = t.shape[-1] if w3 is None else w3
+    if pad_rows:
+        a, c = _shift_rows(t, 'replicate')
+    else:
+        a, t, c = t[:, :-2], t[:, 1:-1], t[:, 2:]
     lo, hi = torch.minimum(a, t), torch.maximum(a, t)
     mid = torch.minimum(hi, c)
     hi = torch.maximum(hi, c)
@@ -99,7 +118,7 @@ def _median3(t: torch.Tensor) -> torch.Tensor:
 
     def lr(x):
         return (torch.cat([x[..., :3], x[..., :-3]], -1),
-                torch.cat([x[..., 3:], x[..., -3:]], -1))
+                torch.cat([x[..., 3:w3], x[..., w3 - 3:]], -1))
 
     (lo_l, lo_r), (mid_l, mid_r), (hi_l, hi_r) = lr(lo), lr(mid), lr(hi)
     maxlo = torch.maximum(torch.maximum(lo_l, lo), lo_r)
@@ -138,6 +157,49 @@ def fused_sap_median_plain(images: torch.Tensor, seeds: torch.Tensor,
     if double_filter:
         out = _median3(out)
     return out.reshape(b, h, w, 3).to(images.dtype)
+
+
+def _stage_index(stage: str) -> int:
+    if stage not in STAGES:
+        raise ValueError(f'stage must be one of {STAGES}, got {stage!r}')
+    return STAGES.index(stage)
+
+
+def sap_stages_plain(raster: torch.Tensor, seeds: torch.Tensor, h: int,
+                     w3: int, stage: str, amount: float = 0.4
+                     ) -> torch.Tensor:
+    """The sap + median kernel cut at `stage` on a pre-padded raster
+    (B, hp + 8, w3p) -> (B, hp, w3p), in global coordinates: raster row
+    g + 4 holds image row g; the hash takes the row clamped to [0, h-1]
+    and the lane clamped to w3 - 1; the first median reads the raster's own
+    halo rows; the second replaces filtered rows -1 and h by rows 0 and
+    h - 1."""
+    _stage_index(stage)
+    _, rows, w3p = raster.shape
+    hp = rows - 2 * HALO
+    if stage == 'copy':
+        return raster[:, HALO:HALO + hp].clone()
+    g = torch.arange(-HALO, rows - HALO, device=raster.device)
+    iy = g.clamp(0, h - 1)[None, :, None]
+    ix = torch.arange(w3p, device=raster.device).clamp(max=w3 - 1)
+    bits = hash2d(iy, ix[None, None, :],
+                  (seeds.to(torch.int64) & _M32)[:, None, None])
+    flipped = bits < _sap_threshold(amount)
+    salted = (bits & 1) == 1
+    noisy = torch.where(flipped & salted, 255.0, raster.to(torch.float32))
+    noisy = torch.where(flipped & ~salted, 0.0, noisy)
+    if stage == 'noise':
+        out = noisy[:, HALO:HALO + hp]
+    else:
+        m1 = _median3(noisy, w3, pad_rows=False)    # rows -3 .. hp + 2
+        if stage == 'med1':
+            out = m1[:, HALO - 1:HALO - 1 + hp]
+        else:
+            r = g[1:-1]
+            src = torch.where(r == -1, 0, torch.where(r == h, h - 1, r))
+            m1 = m1[:, (src - r + torch.arange(len(r), device=r.device))]
+            out = _median3(m1, w3, pad_rows=False)[:, HALO - 2:HALO - 2 + hp]
+    return out.to(raster.dtype)
 
 
 def _gauss_noise(iy, ix, seed, sigma):
@@ -234,6 +296,59 @@ def fused_sap_median(images: torch.Tensor, seeds: torch.Tensor,
                           _sap_threshold_i32(amount), int(double_filter))
         launches['sap_median_image'] += 1
     return out
+
+
+def _check_raster(raster: torch.Tensor, seeds: torch.Tensor, h: int,
+                  w3: int):
+    if raster.dim() != 3 or raster.dtype not in (torch.uint8, torch.float32):
+        raise ValueError('raster must be (B, hp + 8, w3p) uint8 or float32, '
+                         f'got {tuple(raster.shape)} {raster.dtype}')
+    b, rows, w3p = raster.shape
+    if not (0 < h <= rows - 2 * HALO and 3 <= w3 <= w3p):
+        raise ValueError(f'h={h}, w3={w3} do not fit a raster of {rows} rows '
+                         f'and {w3p} lanes')
+    if seeds.shape != (b,) or seeds.dtype != torch.int32:
+        raise ValueError('seeds must be (B,) int32')
+    if seeds.device != raster.device:
+        raise ValueError('seeds and raster must share a device')
+    if raster.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {raster.device}')
+
+
+def sap_stages(raster: torch.Tensor, seeds: torch.Tensor, h: int, w3: int,
+               stage: str, amount: float = 0.4, counter: str | None = None
+               ) -> torch.Tensor:
+    """The sap + median kernel cut at `stage` ('copy', 'noise', 'med1' or
+    'full') on a pre-padded (B, hp + 8, w3p) uint8 or float32 raster of an
+    image of h rows and w3 lanes; returns (B, hp, w3p) of the raster's
+    dtype (see `sap_stages_plain`).  A launch counts under `counter`
+    (default: the entry's name)."""
+    _check_raster(raster, seeds, h, w3)
+    idx = _stage_index(stage)
+    if raster.device.type == 'cpu':
+        return sap_stages_plain(raster, seeds, h, w3, stage, amount)
+    entry = ('sap_stages_u8' if raster.dtype == torch.uint8
+             else 'sap_stages_f32')
+    b, rows, w3p = raster.shape
+    raster, seeds = raster.contiguous(), seeds.contiguous()
+    out = torch.empty((b, rows - 2 * HALO, w3p), dtype=raster.dtype,
+                      device=raster.device)
+    cuda_build.launch('sap_stages', entry, raster, out, seeds, b, h, w3,
+                      rows - 2 * HALO, w3p, idx, _sap_threshold_i32(amount))
+    launches[counter or entry] += 1
+    return out
+
+
+def sap_full_padded(raster: torch.Tensor, seeds: torch.Tensor, h: int,
+                    w3: int, amount: float = 0.4) -> torch.Tensor:
+    """Salt & pepper + median3 x2 on a pre-padded float32 raster, pad rows
+    and pad lanes computed from whatever the raster holds there: the
+    kernel of `fused_sap_median_batched` without its padding and slicing,
+    i.e. the f32 full stage, counted as 'sap_full_padded'."""
+    if raster.dtype != torch.float32:
+        raise TypeError(f'raster must be float32, got {raster.dtype}')
+    return sap_stages(raster, seeds, h, w3, 'full', amount,
+                      counter='sap_full_padded')
 
 
 def fused_gaussian_blur(images: torch.Tensor, seeds: torch.Tensor,
