@@ -17,9 +17,13 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      the port's prologue), bit-exact for original, sap, shader, quant,
      bloom, periodic and brownian, and within a mod-256 distance of 1 on
      <= 1e-3 of the elements for the kinds that go through log/exp/cos
-     (gaussian's [0, 1] floats within 1e-6); bloom on 8 images bit-exact;
-     the standalone bilateral (8, 600, 1000, 3) f32 bit-exact; the
-     per-image sap + median entry on the same shape bit-exact; the
+     (gaussian's [0, 1] floats within 1e-6); mix + bilateral also timed
+     on 8 images of each kind alone and on 8 images drawn by
+     noise_mix_var_all_bilateral's plan (with that plan's bound); bloom
+     on 8 images bit-exact; the standalone bilateral (8, 600, 1000, 3)
+     f32 bit-exact on u8 values (its table form) and on [0, 1] floats
+     (its per-tap expf form), each timed; the per-image sap + median
+     entry on the same shape bit-exact; the
      threefry fields for 8 keys x 1.8M elements: bits and uniforms
      bit-exact, normals within 2 ulp; the stage-cut sap + median kernels
      (the profiling forks) on the edge-padded raster of (8, 600, 1000, 3)
@@ -48,17 +52,23 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      to its plain version;
   6. where the time goes: two chunks of each string under torch.profiler
      (device kernel time, idle share, the port's own kernels' share), and
-     of the res101 sap chunk.
+     of the res101 sap chunk; then each kernel's device time on phase 3's
+     inputs.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
-plain version's per-element operations).  The line before the last is
-the card's name and power limit, the one before that the kernel table as
-JSON; the last line is {"ok": true, "device": {...}}.
+plain version's per-element operations).  Its ms is by CUDA events over
+back-to-back launches in phase 3 (host time between them included);
+device_ms is the kernel time of as many launches from torch.profiler,
+read in phase 6 so that no profiler session runs before the timed chunks.
+The line before the last is the card's name and power limit, the one
+before that the kernel table as JSON; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import sys
@@ -68,9 +78,12 @@ import numpy as np
 import torch
 
 from tpudenoise_torch import cuda_build
+from tpudenoise_torch.benchmarks import profile_bilateral as pb
 from tpudenoise_torch.benchmarks import profile_fused as pf
 from tpudenoise_torch.benchmarks import profile_sap_breakdown as psb
-from tpudenoise_torch.benchmarks.timing import card_line, time_ms
+from tpudenoise_torch.benchmarks.profile_bilateral import (MIX_ENTRIES,
+                                                            MIX_PLAN)
+from tpudenoise_torch.benchmarks.timing import card_line, device_ms, time_ms
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.denoise import bilateral as bil
@@ -119,11 +132,6 @@ STAGE_OPS = {'copy': 0, 'noise': 15 + 4, 'med1': 15 + 4 + 16,
 # mix kernels, by kind (Kind value): the kind's generator per element
 MIX_OPS = {0: 0, 1: 45, 2: 330, 3: 20, 4: 47, 5: 110, 6: 22, 7: 60, 8: 8,
            9: 300, 10: 25, 11: 430, 12: 6}
-# one image per kind, levels from the var_all table, then brownian,
-# periodic and quant at a second level: (Kind value, level)
-MIX_ENTRIES = [(0, 0.0), (1, 1.0), (2, 0.0), (3, 0.8), (4, 2.0), (5, 7.0),
-               (6, 1.2), (7, 0.9), (8, 100.0), (9, 0.2), (10, 0.3),
-               (11, 0.0), (12, 0.0), (7, 0.009), (8, -1.0), (5, 10.0)]
 # kinds through logf/expf/cosf: gaussian, poisson, speckle, uniform,
 # gamma, rayleigh (their bound is stated; the rest must be bit-exact)
 TRANSCENDENTAL = {1, 2, 4, 6, 9, 10}
@@ -131,6 +139,13 @@ TRANSCENDENTAL = {1, 2, 4, 6, 9, 10}
 
 def log(*a):
     print(*a, flush=True)
+
+
+def later(*args, **kw):
+    """device_ms(*args, **kw), read only after the main paths (main):
+    a torch.profiler session before them would run in their timed
+    chunks."""
+    return functools.partial(device_ms, *args, **kw)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -224,6 +239,8 @@ def check_kernels(dev) -> list:
         max_abs_err=float(err),
         ms=time_ms(lambda: fk.fused_sap_median_batched(raw, seeds, 0.4,
                                                        True), 20),
+        device_ms=later(lambda: fk.fused_sap_median_batched(
+            raw, seeds, 0.4, True), 20, ('sap_median_kernel',)),
         plain_ms=time_ms(lambda: fk.fused_sap_median_plain(raw, seeds, 0.4,
                                                            True), 3, 1),
         **bound(2 * raw.numel(), OPS['sap_median'] * raw.numel())))
@@ -248,6 +265,8 @@ def check_kernels(dev) -> list:
         max_abs_err=float(err), changed_share=share,
         ms=time_ms(lambda: fk.fused_gaussian_blur(raw, seeds, 0.1, True,
                                                   sigmas=sig), 20),
+        device_ms=later(lambda: fk.fused_gaussian_blur(
+            raw, seeds, 0.1, True, sigmas=sig), 20, ('gauss_blur_kernel',)),
         plain_ms=time_ms(lambda: fk.fused_gaussian_blur_plain(
             raw, seeds, 0.1, True, sigmas=sig), 3, 1),
         **bound(2 * raw.numel(), OPS['gauss_blur'] * raw.numel())))
@@ -269,6 +288,8 @@ def check_kernels(dev) -> list:
         source='tpudenoise_torch/csrc/nms_mask.cu',
         replaces='tpudenoise/ops/nms.py:234', max_abs_err=float(err),
         ms=time_ms(lambda: nms.build_suppression_masks_cuda(boxes, 0.7), 20),
+        device_ms=later(lambda: nms.build_suppression_masks_cuda(
+            boxes, 0.7), 20, ('mask_kernel',)),
         plain_ms=time_ms(lambda: nms.build_suppression_masks(boxes, 0.7),
                          3, 1),
         # 512 x 512 tiles on or above the diagonal, ~15 operations per
@@ -294,28 +315,43 @@ def check_kernels(dev) -> list:
         replaces='tpudenoise/noise/pallas_kernels.py:339',
         max_abs_err=float(err),
         ms=time_ms(lambda: fk.fused_sap_median(img, seeds, 0.4, True), 20),
+        device_ms=later(lambda: fk.fused_sap_median(img, seeds, 0.4, True),
+                        20, ('sap_median_kernel',), per_call=B),
         plain_ms=time_ms(lambda: fk.fused_sap_median_plain(img, seeds, 0.4,
                                                            True), 3, 1),
         **bound(8 * img.numel(), OPS['sap_median'] * img.numel())))
 
     # kernel 5: the standalone bilateral, bit-exact, on u8-domain floats
-    # with a zero band (as clipped noise makes)
-    img[:, :, :7] = 0.0
-    got = bil.bilateral_batched(img)
-    torch.cuda.synchronize()
-    err = (got - bil.bilateral_plain(img)).abs().max().item()
-    log(f'kernel bilateral: max |diff| {err} (bit-exact required)')
-    if err != 0:
-        raise AssertionError('bilateral kernel differs from its plain '
-                             'version')
+    # with a zero band (as clipped noise makes; the table form) and on
+    # [0, 1] floats (the gaussian kind's output; the per-tap expf form)
+    band = img.clone()
+    band[:, :, :7] = 0.0
+    unit = torch.from_numpy(rng.uniform(0.0, 1.0, (B, H, W, 3)).astype(
+        np.float32)).to(dev)
+    err = 0.0
+    for what, x in (('u8 values', band), ('[0, 1] floats', unit)):
+        got = bil.bilateral_batched(x)
+        torch.cuda.synchronize()
+        e = (got - bil.bilateral_plain(x)).abs().max().item()
+        log(f'kernel bilateral on {what}: max |diff| {e} (bit-exact '
+            f'required)')
+        if e != 0:
+            raise AssertionError(f'bilateral kernel differs from its plain '
+                                 f'version on {what}')
+        err = max(err, e)
     rows.append(dict(
         name='bilateral_batched', route='cuda',
         source='tpudenoise_torch/csrc/bilateral.cu',
         replaces='tpudenoise/denoise/pallas_bilateral.py:138',
         max_abs_err=float(err),
-        ms=time_ms(lambda: bil.bilateral_batched(img), 20),
-        plain_ms=time_ms(lambda: bil.bilateral_plain(img), 3, 1),
-        **bound(8 * img.numel(), OPS['bilateral'] * img.numel())))
+        ms=time_ms(lambda: bil.bilateral_batched(band), 20),
+        device_ms=later(lambda: bil.bilateral_batched(band), 20,
+                        ('bilateral_kernel',)),
+        unit_floats_ms=time_ms(lambda: bil.bilateral_batched(unit), 20),
+        unit_floats_device_ms=later(
+            lambda: bil.bilateral_batched(unit), 20, ('bilateral_kernel',)),
+        plain_ms=time_ms(lambda: bil.bilateral_plain(band), 3, 1),
+        **bound(8 * band.numel(), OPS['bilateral'] * band.numel())))
     return rows
 
 
@@ -354,6 +390,7 @@ def check_threefry(dev) -> list:
         source='tpudenoise_torch/csrc/threefry.cu',
         replaces='tpudenoise/noise/generators.py:140',
         max_abs_err=worst, ms=time_ms(draw, 20),
+        device_ms=later(draw, 20, ('threefry_kernel',)),
         plain_ms=time_ms(lambda: prng.threefry_draw_plain(
             keys, n, 'normal', 0.0, 1.0, float(prng._SQRT2)), 3, 1),
         **bound(4 * B * n, OPS['normal'] * B * n))]
@@ -501,10 +538,37 @@ def check_mix_kernels(dev) -> list:
             source='tpudenoise_torch/csrc/mix_noise.cu', replaces=line,
             max_abs_err=(got - want).abs().max().item(),
             ms=time_ms(lambda: fn(raw, *args, kinds), 10),
+            device_ms=later(lambda fn=fn: fn(raw, *args, kinds), 10, (
+                name.replace('fused_', '') + '_kernel', 'brownian_')),
             plain_ms=time_ms(lambda: plain(raw, *args, kinds), 2, 1),
             **bound(5 * raw.numel(), H * W * 3 * sum(
                 MIX_OPS[k] + (OPS['bilateral'] if 'bilateral' in name
                               else 0) for k, _ in MIX_ENTRIES))))
+
+    # kernel 7 at the main path's batch: 8 images drawn by the plan (its
+    # bound from the kinds drawn), and 8 images of each kind alone, at the
+    # kind's first level in MIX_ENTRIES
+    row = rows[-1]
+    praw, pkinds, pargs, drawn = pb.plan_inputs(dev)
+    row['plan_kinds'] = drawn
+    row['plan_ms'] = time_ms(
+        lambda: mk.fused_mix_bilateral(praw, *pargs, pkinds), 10)
+    row['plan_device_ms'] = later(
+        lambda: mk.fused_mix_bilateral(praw, *pargs, pkinds), 10,
+        ('mix_bilateral_kernel', 'brownian_'))
+    row['plan_bound_ms'] = bound(5 * praw.numel(), H * W * 3 * sum(
+        MIX_OPS[Kind[k.upper()]] + OPS['bilateral']
+        for k in drawn))['bound_ms']
+    row['per_kind_ms'] = {}
+    for kind, level in MIX_ENTRIES[:13]:
+        kraw, kk, kargs = pb.mix_inputs(dev, [(kind, level)] * B,
+                                        seed=11 + kind)
+        row['per_kind_ms'][Kind(kind).name.lower()] = time_ms(
+            lambda: mk.fused_mix_bilateral(kraw, *kargs, kk), 10)
+    log(f'kernel fused_mix_bilateral on {MIX_PLAN} chunk 0 '
+        f'({", ".join(drawn)}): {row["plan_ms"]:.3f} ms, bound '
+        f'{row["plan_bound_ms"]:.4f} ms; by kind (8 images each, ms): '
+        + ', '.join(f'{k} {t:.3f}' for k, t in row['per_kind_ms'].items()))
 
     img = raw[:B]
     params = torch.from_numpy(bloom_params(prng.split(prng.PRNGKey(6), B),
@@ -520,6 +584,8 @@ def check_mix_kernels(dev) -> list:
         source='tpudenoise_torch/csrc/bloom.cu',
         replaces='tpudenoise/noise/pallas_bloom.py:29', max_abs_err=err,
         ms=time_ms(lambda: bl.bloom_batched(img, params), 20),
+        device_ms=later(lambda: bl.bloom_batched(img, params), 20,
+                            ('bloom_kernel',)),
         plain_ms=time_ms(lambda: bloom_apply_scan(img, params), 3, 1),
         **bound(5 * img.numel(), OPS['bloom'] * img.numel())))
     return rows
@@ -869,11 +935,20 @@ def main() -> int:
     e2e[PROFILE_PATH] = profiling_path(dev, card)
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
+    # the kernels' device times (`later`): only now, after every timed
+    # chunk
+    for r in rows:
+        for k, v in r.items():
+            if isinstance(v, functools.partial):
+                r[k] = v()
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
                             for p in e2e.values())
-        log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
+        log(f"{r['name']}: kernel {r['ms']:.3f} ms"
+            + (f" (device {r['device_ms']} ms)" if 'device_ms' in r
+               else '')
+            + f", plain {r['plain_ms']:.3f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} main-path launches  [{card}]")
         for stage, t in r.get('stages', {}).items():

@@ -99,10 +99,12 @@ def _check_mix(got, want, entries):
             assert d.max() == 0, kind
 
 
-@pytest.mark.parametrize('shape', [(24, 40), (37, 70), (21, 300)])
+@pytest.mark.parametrize('shape', [(24, 40), (37, 70), (21, 300), (75, 290)])
 def test_mix_kernels_match_plain(dev, shape):
     """All 13 kinds (brownian, periodic and quant twice), including H, W
-    off the 16x64 / 256 tile grid."""
+    off the mix + bilateral kernel's 32x64 tile grid (75 x 290: three
+    tiles down and five across, the last ones partial) and the mix
+    kernel's 256."""
     from tpudenoise_torch.noise import mix_kernels as mk
     im, kinds, args = _mix_batch(dev, *shape, ALL_KINDS, sum(shape))
     for fn, plain in ((mk.fused_mix_noise, mk.fused_mix_noise_plain),
@@ -165,6 +167,61 @@ def test_bilateral_kernel_matches_plain(dev, shape):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), bilateral_plain(im), atol=0,
                                rtol=0)
+
+
+def _bilateral_case(name):
+    """Inputs for kernel 5's two colour-weight forms: [0, 1] floats (the
+    per-tap expf form in every block); u8 values with one region of
+    fractional values (both forms in one launch); all-0 and all-255
+    quadrants (d = 0 and 765, the table's ends); u8 values at sizes off
+    kernel 5's 32x32 tile grid."""
+    rng = np.random.RandomState(len(name))
+    if name == 'unit floats':
+        return rng.uniform(0.0, 1.0, (2, 45, 150, 3)).astype(np.float32)
+    if name == 'both forms':
+        im = rng.randint(0, 256, (2, 70, 300, 3)).astype(np.float32)
+        im[1, 40:, 150:] += 0.5
+        return im
+    if name == 'extremes':
+        im = np.zeros((1, 70, 270, 3), np.float32)
+        im[:, :35, 135:] = 255.0
+        im[:, 35:, :135] = 255.0
+        return im
+    return rng.randint(0, 256, (3, 33, 129, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize('name', ['unit floats', 'both forms', 'extremes',
+                                  'off the tile grid'])
+def test_bilateral_kernel_forms_bitexact(dev, name):
+    """Kernel 5 bit-exact against its plain version whichever colour-weight
+    form its blocks take."""
+    from tpudenoise_torch.denoise.bilateral import (bilateral_batched,
+                                                    bilateral_plain)
+    im = torch.from_numpy(_bilateral_case(name))
+    got = bilateral_batched(im.to(dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), bilateral_plain(im), atol=0,
+                               rtol=0)
+
+
+def test_bilateral_wrappers_do_not_synchronize(dev):
+    """Second calls of both bilateral wrappers under sync debug mode
+    'error': a blocking host-to-device copy or any other synchronisation
+    in either wrapper raises.  (The first calls build the cached
+    constants and the kernels.)"""
+    from tpudenoise_torch.denoise.bilateral import bilateral_batched
+    from tpudenoise_torch.noise import mix_kernels as mk
+    im = torch.from_numpy(_bilateral_case('both forms')).to(dev)
+    raw, kinds, args = _mix_batch(dev, 37, 70, ALL_KINDS, 8)
+    for strict in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error' if strict else 'default')
+        try:
+            bilateral_batched(im)
+            mk.fused_mix_bilateral(raw, *args, kinds)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('n', [1, 4097, 600 * 1000 * 3])

@@ -42,6 +42,33 @@ def time_ms(fn, iters: int, warm: int = 2) -> float:
     return elapsed_ms([fn] * iters) / iters
 
 
+def device_ms(fn, iters: int, symbols=None, warm: int = 2,
+              per_call: int = 1) -> float | None:
+    """Mean device time of fn() over iters runs after `warm` untimed ones,
+    from torch.profiler's key_averages: the kernels whose names hold one
+    of `symbols` (every kernel when None).  Unlike `time_ms`, host time
+    between the kernels does not count.  The trace must hold `per_call`
+    launches of the first symbol's kernel a call: a trace that dropped
+    some is taken again, at most twice, and then None is returned."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type.name == 'CUDA' and (
+                    symbols is None or any(s in e.key for s in symbols))]
+        if symbols is None or sum(e.count for e in kern if symbols[0]
+                                  in e.key) == per_call * iters:
+            return sum(e.self_device_time_total for e in kern) / iters / 1e3
+    return None
+
+
 def images_per_s(fn, images: torch.Tensor, seeds: torch.Tensor | None,
                  inner: int, reps: int) -> float:
     """Images/s of `inner` calls fn(images, seeds + i) (fn(images) when

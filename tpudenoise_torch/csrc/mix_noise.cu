@@ -22,10 +22,17 @@
 // bytes and writes 12 per pixel (~43 MB for 8 x 600x1000, ~13 us at
 // 3.35 TB/s), but poisson runs 33 inverse-CDF steps and 4 PTRS rounds
 // with logs per element, and gamma 4 Box-Muller pairs; the cheap kinds are
-// memory-bound.  mix_bilateral adds 49 taps with an expf each per pixel
-// and recomputes the noise of a 4-pixel halo (1.7x the pixels for 16x64
-// tiles).  This first version is simple: one thread per pixel, scalar
-// loads, no TMA; the window lives in 21 KB of shared memory.
+// memory-bound.  mix_bilateral adds the 49 taps of each pixel and
+// recomputes the noise of a 4-pixel halo: its 32 x 64 tiles recompute
+// 1.41x the pixels (16 x 64 tiles: 1.69x; 32 x 128 and 64 x 64 recompute
+// less but ran slower on the card, with fewer blocks resident).  The
+// noisy window lives in dynamic shared memory as bilateral_taps::stage
+// lays it out, with the colour-weight table (49,144 bytes, under the
+// 48 KB a launch gets without opting in); a window of u8 values (every
+// kind but gaussian, whose values are [0, 1] floats) takes the table form
+// of the taps, any other the per-tap expf, both bit-exact against the
+// plain version's bilateral.  One thread per pixel for mix_noise, strips
+// of 2 pixels for the taps; scalar loads, no TMA.
 //
 // Brownian: the path is the exclusive prefix of sqrt(level)*N(0,1) over
 // the raster (1.8M terms at 600x1000), and its f32 rounding grows like
@@ -48,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "bilateral_taps.cuh"
 #include "bloom_steps.cuh"
@@ -62,9 +70,11 @@ enum Kind {
 
 constexpr int kKPad = 10;      // quant centres per image
 using bilateral_taps::kRadius;  // bilateral d=9
-using bilateral_taps::kTaps;
-constexpr int kTileH = 16, kTileW = 64;
+using bilateral_taps::Weights;
+constexpr int kTileH = 32, kTileW = 64, kStrip = 2;
 constexpr int kWinH = kTileH + 2 * kRadius, kWinW = kTileW + 2 * kRadius;
+constexpr int kBilSmem = bilateral_taps::smem_bytes(kWinH, kWinW);
+static_assert(kBilSmem <= 48 * 1024, "no opt-in to more shared memory");
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;
 
@@ -474,14 +484,17 @@ mix_bilateral_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
                      const float* __restrict__ bloom,
                      const float* __restrict__ rows,
                      const float* __restrict__ off,
-                     const float* __restrict__ sw_g, float gc, int h, int w) {
-  __shared__ float win[3][kWinH][kWinW];
-  __shared__ float sw[kTaps];
+                     const __grid_constant__ Weights sw, float gc, int h,
+                     int w) {
+  extern __shared__ float smem[];
+  auto win = reinterpret_cast<float (*)[kWinH][kWinW]>(smem);
+  float* lut = smem + 4 * kWinH * kWinW;
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * kTileH, c0 = blockIdx.x * kTileW;
   const Image p =
       load_image(b, h, w, kind, level, seeds, vals, centers, bloom, rows, off);
-  if (threadIdx.x < kTaps) sw[threadIdx.x] = sw_g[threadIdx.x];
+  bilateral_taps::fill_lut(lut, gc);
+  bool u8 = true;
   for (int i = threadIdx.x; i < kWinH * kWinW; i += blockDim.x) {
     const int wy = i / kWinW, wx = i % kWinW;
     const int y = r0 - kRadius + wy, x = c0 - kRadius + wx;
@@ -492,19 +505,11 @@ mix_bilateral_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
       for (int c = 0; c < 3; ++c) px[c] = (float)(int)in[e + c];
       noisy_pixel(p, y, x, px, o);
     }
-    for (int c = 0; c < 3; ++c) win[c][wy][wx] = o[c];
+    u8 = u8 & bilateral_taps::stage(win, wy, wx, o);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTileH * kTileW; i += blockDim.x) {
-    const int ty = i / kTileW, tx = i % kTileW;
-    const int y = r0 + ty, x = c0 + tx;
-    if (y >= h || x >= w) continue;
-    float o[3];
-    bilateral_taps::pixel<kWinH, kWinW>(win, ty + kRadius, tx + kRadius, sw,
-                                        gc, o);
-    const size_t e = (((size_t)b * h + y) * w + x) * 3;
-    for (int c = 0; c < 3; ++c) out[e + c] = o[c];
-  }
+  const bool table = __syncthreads_and(u8);
+  bilateral_taps::filter_tile<kTileH, kTileW, kStrip, kWinH, kWinW>(
+      win, table, sw, gc, lut, out, b, h, w, r0, c0);
 }
 
 int scan_smem(const void* fn, int n) {
@@ -547,17 +552,21 @@ int mix_noise(const void* in, void* out, const void* kind, const void* level,
   return (int)cudaGetLastError();
 }
 
+// sw: HOST pointer to the 49 spatial weights in tap order (they go to the
+// kernel as a parameter); every other pointer is on the device.
 int mix_bilateral(const void* in, void* out, const void* kind,
                   const void* level, const void* seeds, const void* vals,
                   const void* centers, const void* bloom, const void* rows,
                   const void* off, const void* sw, float gc, int b, int h,
                   int w, void* stream) {
+  Weights wt;
+  memcpy(wt.v, sw, sizeof(wt.v));
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, b);
-  mix_bilateral_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  mix_bilateral_kernel<<<grid, kThreads, kBilSmem, (cudaStream_t)stream>>>(
       (const uint8_t*)in, (float*)out, (const int*)kind, (const float*)level,
       (const int*)seeds, (const float*)vals, (const float*)centers,
-      (const float*)bloom, (const float*)rows, (const float*)off,
-      (const float*)sw, gc, h, w);
+      (const float*)bloom, (const float*)rows, (const float*)off, wt, gc, h,
+      w);
   return (int)cudaGetLastError();
 }
 

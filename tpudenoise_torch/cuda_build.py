@@ -96,8 +96,9 @@ def library(name: str) -> ctypes.CDLL:
 def launch(name: str, entry: str, *args) -> None:
     """Call `entry` of `csrc/<name>.cu` on the current CUDA stream.
 
-    args: tensors (passed as device pointers), Python ints (int32) and
-    floats (float32), in the C signature's order before the stream."""
+    args: tensors (passed as data pointers: device memory, or host memory
+    where the C signature says so), Python ints (int32) and floats
+    (float32), in the C signature's order before the stream."""
     fn = getattr(library(name), entry)
     conv, types = [], []
     for a in args:

@@ -15,11 +15,19 @@ Output round(num / den), half to even.
 
 Both kernels that filter (`csrc/bilateral.cu` and the mix + bilateral
 kernel of `csrc/mix_noise.cu`) compute the same sums in the same order,
-through `csrc/bilateral_taps.cuh`.
+through `csrc/bilateral_taps.cuh`.  A block whose window holds only u8
+values (integers in [0, 255]) reads the colour weight from a table of the
+766 values exp(gc * d * d) can take there, filled with the same
+expression; any other block runs one exp per tap.  Both give this
+module's bits.  The spatial weights go to the kernels as a launch
+parameter, from one host tensor per sigma_space built once
+(`spatial_weights`), so a launch copies nothing to the device and never
+waits for it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,8 +41,9 @@ RADIUS = 4
 launches = {'bilateral': 0}
 
 
-def taps(sigma_space: float = 100.0):
-    """[(dy, dx, f32 spatial weight)] in the reference's order."""
+@functools.lru_cache(maxsize=None)
+def taps(sigma_space: float = 100.0) -> tuple:
+    """((dy, dx, f32 spatial weight), ...) in the reference's order."""
     gs = -0.5 / (sigma_space * sigma_space)
     out = []
     for dy in range(-RADIUS, RADIUS + 1):
@@ -42,7 +51,21 @@ def taps(sigma_space: float = 100.0):
             r2 = dy * dy + dx * dx
             if math.sqrt(r2) <= RADIUS:
                 out.append((dy, dx, float(np.float32(math.exp(gs * r2)))))
-    return out
+    return tuple(out)
+
+
+def spatial_weights(sigma_space: float = 100.0) -> torch.Tensor:
+    """The 49 spatial weights of `taps` as one float32 host tensor, built
+    once per sigma_space (callers must not write to it): the kernels take
+    them as a launch parameter (the C entry reads this tensor's host
+    memory), so no launch copies them to the device."""
+    return _spatial_weights(float(sigma_space))
+
+
+@functools.lru_cache(maxsize=None)
+def _spatial_weights(sigma_space: float) -> torch.Tensor:
+    return torch.tensor([t[2] for t in taps(sigma_space)],
+                        dtype=torch.float32)
 
 
 def color_coeff(sigma_color: float = 20.0) -> float:
@@ -84,9 +107,8 @@ def bilateral_batched(images: torch.Tensor, sigma_color: float = 20.0,
     b, h, w, _ = images.shape
     images = images.contiguous()
     out = torch.empty_like(images)
-    sw = torch.tensor([t[2] for t in taps(sigma_space)], dtype=torch.float32,
-                      device=images.device)
-    cuda_build.launch('bilateral', 'bilateral', images, out, sw,
-                      color_coeff(sigma_color), b, h, w)
+    cuda_build.launch('bilateral', 'bilateral', images, out,
+                      spatial_weights(sigma_space), color_coeff(sigma_color),
+                      b, h, w)
     launches['bilateral'] += 1
     return out

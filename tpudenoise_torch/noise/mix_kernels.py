@@ -28,12 +28,14 @@ another, so against it brownian agrees only up to those roundings.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from tpudenoise_torch import cuda_build
 from tpudenoise_torch.denoise.bilateral import (bilateral_plain,
-                                                color_coeff, taps)
+                                                color_coeff, spatial_weights)
 from tpudenoise_torch.noise.fused_kernels import _M32, _mul32
 from tpudenoise_torch.noise.generators import (N_STEPS, bloom_apply_scan,
                                                brownian_path, saturate_u8,
@@ -353,13 +355,21 @@ def _check(images, branch, level, seeds, vals, centers, bloom, kinds):
                          'shared memory: 3W and H must be <= 29056')
 
 
+@functools.lru_cache(maxsize=None)
+def kind_table(kinds: tuple, device: torch.device) -> torch.Tensor:
+    """The plan's Kind values as an int32 tensor on `device`, built once
+    per (kinds, device): a launch indexes it on the device and copies
+    nothing from the host."""
+    return torch.tensor(kinds, dtype=torch.int32, device=device)
+
+
 def _launch_args(images, branch, level, seeds, vals, centers, bloom, kinds):
     """Contiguous kernel operands; brownian-drawn images get their row
     scans and row offsets from the prefix pass first."""
     b, h, w, _ = images.shape
     dev = images.device
-    kind = torch.tensor([int(k) for k in kinds], dtype=torch.int32,
-                        device=dev)[branch.to(torch.int64)]
+    kind = kind_table(tuple(int(k) for k in kinds),
+                      dev)[branch.to(torch.int64)]
     level, seeds = level.contiguous(), seeds.contiguous()
     if int(Kind.BROWNIAN) in kinds:
         rows = torch.empty((b, h, 3 * w), dtype=torch.float32, device=dev)
@@ -409,12 +419,11 @@ def fused_mix_bilateral(images, branch, level, seeds, vals, centers, bloom,
     (im, kind, level, seeds, vals, centers, bloom, rows,
      off) = _launch_args(images, branch, level, seeds, vals, centers,
                          bloom, kinds)
-    sw = torch.tensor([t[2] for t in taps(sigma_space)], dtype=torch.float32,
-                      device=images.device)
     out = torch.empty(images.shape, dtype=torch.float32,
                       device=images.device)
     cuda_build.launch('mix_noise', 'mix_bilateral', im, out, kind, level,
-                      seeds, vals, centers, bloom, rows, off, sw,
-                      color_coeff(sigma_color), b, h, w)
+                      seeds, vals, centers, bloom, rows, off,
+                      spatial_weights(sigma_space), color_coeff(sigma_color),
+                      b, h, w)
     launches['mix_bilateral'] += 1
     return out
