@@ -6,12 +6,16 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
   2. build: nvcc builds the seven kernel sources of tpudenoise_torch/csrc
-     (twelve kernels), one nvcc process each, all at once;
+     (thirteen kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
      sap+median (8, 600, 1000, 3) u8 bit-exact; gaussian+blur same shape
      within max |diff| <= 1 on <= 1e-3 of the pixels; packed NMS masks
-     8 x 6144 sorted boxes word for word; mix noise and mix + bilateral on
+     (kernel 3) word for word on 8 x 6144 sorted boxes and on the
+     postprocess batch (160 x 320 with invalid rows); the greedy walk
+     over the words, keep positions bit-exact, on 8 x 6144 with
+     max_outputs 300 and 6144 and on the postprocess batch (ties) with
+     100, each timed; mix noise and mix + bilateral on
      16 images of 600x1000 whose explicit branches cover all 13 kinds
      (levels from the var_all table; quant palettes and bloom params from
      the port's prologue), bit-exact for original, sap, shader, quant,
@@ -43,13 +47,20 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      chunk i holding images 8i..8i+7 (so each chunk draws its own noise
      and, for the mixes, its own kinds); the launch counters are zeroed
      before each path and read after it, and the path's kernels must have
-     launched; then the per-image sap + median entry's own path on the
+     launched, kernel 3 and the walk exactly twice a chunk each (the RPN
+     NMS and the postprocess NMS); then the per-image sap + median entry's
+     own path on the
      sap chunk's images and seeds, equal to the batched kernel's result;
      then the same chunk with a seeded-init ResNet-101 (bench_config6's
      model) for sap_median_var0.4; then the profiling path: the two
      profiling entry points (`profile_sap_breakdown.run` / `u8_run` and
      `profile_fused.kernel_only_output`) once each at B=128, each equal
-     to its plain version;
+     to its plain version; then the dataset loop: `test_net_batched` over
+     16 numpy-written rrData images of 600x1000 (`.npy` pixels) with a
+     seeded two-class vgg16 through the port's rrData and voc_eval: 10
+     finite APs in [0, 1], chunk 0 equal to detect_chunk +
+     limit_per_image (phase 4's tolerance), the ground truth scoring 1.0,
+     and the loop's wall time;
   6. where the time goes: two chunks of each string under torch.profiler
      (device kernel time, idle share, the port's own kernels' share), and
      of the res101 sap chunk; then each kernel's device time on phase 3's
@@ -85,10 +96,13 @@ from tpudenoise_torch.benchmarks.profile_bilateral import (MIX_ENTRIES,
                                                             MIX_PLAN)
 from tpudenoise_torch.benchmarks.timing import card_line, device_ms, time_ms
 from tpudenoise_torch.core import prng
-from tpudenoise_torch.core.config import default_config
+from tpudenoise_torch.core.config import default_config, get_output_dir
+from tpudenoise_torch.data import synthetic
+from tpudenoise_torch.data.voc_like import rrData
 from tpudenoise_torch.denoise import bilateral as bil
 from tpudenoise_torch.eval.harness import (detect_chunk, limit_per_image,
-                                           set_matmul_precision)
+                                           set_matmul_precision,
+                                           test_net_batched)
 from tpudenoise_torch.models.faster_rcnn import FasterRCNN
 from tpudenoise_torch.noise import bloom as bl
 from tpudenoise_torch.noise import fused_kernels as fk
@@ -99,6 +113,7 @@ from tpudenoise_torch.noise.mix_prologue import (entry_draws, fixed_prologue,
 from tpudenoise_torch.noise.pipeline import make_pipeline
 from tpudenoise_torch.noise.spec import Kind, parse
 from tpudenoise_torch.ops import nms
+from tpudenoise_torch.utils.image_io import read_bgr
 
 B, H, W = 8, 600, 1000
 BUCKET = (608, 1024)
@@ -108,8 +123,14 @@ NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
 SMALL_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
                 'noise_mix_var_all_bilateral', 'speckle_bilateral_var1.0',
                 'uniform_mean_var0.6', 'quant_var10')
+DEV = 'cuda'
+MASKS, WALK = 'build_suppression_masks_cuda', 'greedy_keep'
+# no Pallas counterpart: the reference's nms_packed sweeps to a fixpoint
+WALK_REPLACES = 'tpudenoise/ops/nms.py:365'
 SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
            'threefry', 'sap_stages')
+# the dataset-loop phase: images and noise string
+LOOP_IMAGES, LOOP_NOISE = 16, 'sap_median_var0.4'
 # the res101 main path: bench_config6's model and noise
 RES_NOISES = ('sap_median_var0.4',)
 # the profiling scripts' batch and the tile heights their rows are timed at
@@ -215,6 +236,84 @@ def nms_boxes(rng, b: int, n: int) -> np.ndarray:
     return out
 
 
+def postprocess_boxes(rng):
+    """The postprocess NMS's batch: B images x 20 classes = 160 problems
+    of 300 RoIs padded to 320, score-sorted, boxes on a coarse grid (ties
+    and long suppression chains), a quarter of the RoIs and the 20 pad
+    rows invalid and zero.  Returns (160, 320, 4) f32 boxes and the
+    (160, 320) validity on the card."""
+    p, r, n = B * 20, 300, 320
+    xy = rng.uniform(0, 120, (p, n, 2))
+    bx = np.round(np.concatenate([xy, xy + rng.uniform(8, 200, (p, n, 2))],
+                                 -1) / 8) * 8
+    valid = rng.uniform(size=(p, n)) > 0.25
+    valid[:, r:] = False
+    bx[~valid] = 0.0
+    return (torch.from_numpy(bx.astype(np.float32)).to(DEV),
+            torch.from_numpy(valid).to(DEV))
+
+
+def mask_bound(boxes, words) -> dict:
+    """Kernel 3's bound: ~15 operations for each pair i < j, N(N-1)/2 a
+    problem; the boxes read and the words written."""
+    p, n, _ = boxes.shape
+    return bound(boxes.numel() * 4 + words.numel() * 4,
+                 15 * p * n * (n - 1) // 2)
+
+
+def walk_bound(words, keep, max_out) -> dict:
+    """The walk's bound: the words it must read.  Per problem, each strip
+    up to the one where the max_out-th box is kept (or the last) that
+    keeps a box reads its row's words from the strip's own columns on."""
+    p, nw, n = words.shape
+    kept = keep.long().cpu().numpy()
+    nbytes = 0
+    for row in kept:
+        pos = row[row >= 0]
+        last = pos[max_out - 1] // 32 if len(pos) >= max_out else nw - 1
+        strips = np.unique(pos // 32)
+        nbytes += 4 * sum(n - 32 * s for s in strips if s <= last)
+    return bound(nbytes, 0)
+
+
+def check_greedy(boxes, masks, post_valid) -> dict:
+    """The walk kernel bit-exact against its plain version: the RPN's 8 x
+    6144 words with max_outputs 300 (the main path's early stop) and 6144
+    (no early stop; ~3% of the boxes invalid), and the postprocess batch
+    (160 x 320, ties) with 100; each timed."""
+    rng = np.random.RandomState(8)
+    valid = torch.from_numpy(rng.uniform(size=boxes.shape[:2]) > 0.03).to(
+        DEV)
+    cases = {'8 x 6144, 300': (masks['8 x 6144'], valid, 300),
+             '8 x 6144, 6144': (masks['8 x 6144'], valid, 6144),
+             '160 x 320, 100': (masks['160 x 320'], post_valid, 100)}
+    row = dict(name=WALK, route='cuda',
+               source='tpudenoise_torch/csrc/nms_mask.cu',
+               replaces=WALK_REPLACES, max_abs_err=0.0, cases={})
+    for what, (words, v, m) in cases.items():
+        got = nms.greedy_keep(words, v, m)
+        want = nms.greedy_keep_plain(words, v, m)
+        torch.cuda.synchronize()
+        bad = (got.long() != want).sum().item()
+        kept = (want >= 0).sum(1).float().mean().item()
+        log(f'kernel greedy_keep {what}: {bad} of {got.numel()} positions '
+            f'differ; {kept:.1f} kept a problem (bit-exact required)')
+        if bad or kept == 0:
+            raise AssertionError(f'greedy_keep differs from its plain '
+                                 f'version at {what}')
+        row['cases'][what] = dict(
+            ms=time_ms(lambda: nms.greedy_keep(words, v, m), 20),
+            # read after the main paths: bind this case's inputs now
+            device_ms=later(lambda words=words, v=v, m=m: nms.greedy_keep(
+                words, v, m), 20, ('greedy_kernel',)),
+            plain_ms=time_ms(lambda: nms.greedy_keep_plain(words, v, m), 2,
+                             1),
+            kept=kept, **walk_bound(words, want, m))
+    row.update({k: v for k, v in row['cases']['8 x 6144, 300'].items()
+                if k != 'kept'})
+    return row
+
+
 def check_kernels(dev) -> list:
     rng = np.random.RandomState(3)
     raw = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(
@@ -271,32 +370,41 @@ def check_kernels(dev) -> list:
             raw, seeds, 0.1, True, sigmas=sig), 3, 1),
         **bound(2 * raw.numel(), OPS['gauss_blur'] * raw.numel())))
 
-    # kernel 3: word for word at the TEST budget (6000 -> 6144)
+    # kernel 3: word for word at the TEST budget (6000 -> 6144) and on the
+    # postprocess batch; then the greedy walk over its words
     boxes = torch.from_numpy(nms_boxes(rng, B, 6144)).to(dev)
-    got = nms.build_suppression_masks_cuda(boxes, 0.7)
-    want = nms.build_suppression_masks(boxes, 0.7)
-    torch.cuda.synchronize()
-    bad = (got != want).sum().item()
-    err = (got.long() - want.long()).abs().max().item()
-    log(f'kernel suppression_masks: {bad} of {got.numel()} words differ; '
-        f'{int((got != 0).sum())} non-zero words')
-    if bad or not got.any():
-        raise AssertionError('suppression mask kernel differs from its '
-                             'plain version')
+    post, post_valid = postprocess_boxes(rng)
+    masks = {}
+    for what, bx, t in (('8 x 6144', boxes, 0.7), ('160 x 320', post, 0.3)):
+        got = nms.build_suppression_masks_cuda(bx, t)
+        want = nms.build_suppression_masks(bx, t)
+        torch.cuda.synchronize()
+        bad = (got != want).sum().item()
+        log(f'kernel suppression_masks {what}: {bad} of {got.numel()} words '
+            f'differ; {int((got != 0).sum())} non-zero words')
+        if bad or not got.any():
+            raise AssertionError(f'suppression mask kernel differs from its '
+                                 f'plain version at {what}')
+        masks[what] = got
+    got = masks['8 x 6144']
     rows.append(dict(
-        name='build_suppression_masks_cuda', route='cuda',
+        name=MASKS, route='cuda',
         source='tpudenoise_torch/csrc/nms_mask.cu',
-        replaces='tpudenoise/ops/nms.py:234', max_abs_err=float(err),
+        replaces='tpudenoise/ops/nms.py:234', max_abs_err=0.0,
         ms=time_ms(lambda: nms.build_suppression_masks_cuda(boxes, 0.7), 20),
         device_ms=later(lambda: nms.build_suppression_masks_cuda(
             boxes, 0.7), 20, ('mask_kernel',)),
         plain_ms=time_ms(lambda: nms.build_suppression_masks(boxes, 0.7),
                          3, 1),
-        # 512 x 512 tiles on or above the diagonal, ~15 operations per
-        # pair; the boxes read, the words written
-        **bound(boxes.numel() * 4 + got.numel() * 4,
-                15 * B * 512 * 512 * (lambda t: t * (t + 1) // 2)(
-                    -(-boxes.shape[1] // 512)))))
+        **mask_bound(boxes, got),
+        post_ms=time_ms(lambda: nms.build_suppression_masks_cuda(post, 0.3),
+                        20),
+        post_device_ms=later(lambda: nms.build_suppression_masks_cuda(
+            post, 0.3), 20, ('mask_kernel',)),
+        post_plain_ms=time_ms(lambda: nms.build_suppression_masks(post, 0.3),
+                              3, 1),
+        post_bound_ms=mask_bound(post, masks['160 x 320'])['bound_ms']))
+    rows.append(check_greedy(boxes, masks, post_valid))
 
     # kernel 4: the per-image entry of kernel 1 (f32 I/O), bit-exact
     img = raw.to(torch.float32)
@@ -642,16 +750,17 @@ def check_small_chunk(dev):
 
 COUNTERS = (fk.launches, nms.launches, mk.launches, bl.launches,
             bil.launches, prng.launches)
-MASKS = 'build_suppression_masks_cuda'
-# the kernels each main path must launch
-PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched', MASKS),
-                'gaussian_gaus_blur_var0.1': ('fused_gaussian_blur', MASKS),
-                'noise_mix_var_all_bilateral': ('fused_mix_bilateral', MASKS),
-                'noise_mix_var_all': ('fused_mix_noise', MASKS),
-                'bloom': ('bloom_batched', MASKS),
+# the kernels each main path must launch, besides the two NMS kernels
+# (twice a chunk each: the RPN's NMS and the postprocess NMS)
+PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched',),
+                'gaussian_gaus_blur_var0.1': ('fused_gaussian_blur',),
+                'noise_mix_var_all_bilateral': ('fused_mix_bilateral',),
+                'noise_mix_var_all': ('fused_mix_noise',),
+                'bloom': ('bloom_batched',),
                 'speckle_bilateral_var1.0': ('threefry_draw',
-                                             'bilateral_batched', MASKS),
-                'poisson': ('threefry_draw', MASKS)}
+                                             'bilateral_batched'),
+                'poisson': ('threefry_draw',)}
+NMS_KERNELS = (MASKS, WALK)
 ENTRY_PATH = 'fused_sap_median entry'
 PROFILE_PATH = 'profiling entry points'
 
@@ -667,6 +776,7 @@ def launch_counts() -> dict:
             'fused_gaussian_blur': fk.launches['gauss_blur'],
             'fused_sap_median': fk.launches['sap_median_image'],
             MASKS: nms.launches['suppression_masks'],
+            WALK: nms.launches['greedy_keep'],
             'fused_mix_noise': mk.launches['mix_noise'],
             'fused_mix_bilateral': mk.launches['mix_bilateral'],
             'bloom_batched': bl.launches['bloom'],
@@ -743,6 +853,9 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
         if missing:
             raise AssertionError(f'{noise}: the main path did not launch '
                                  f'{missing} ({counts})')
+        if any(counts[k] != 2 * 8 for k in NMS_KERNELS):
+            raise AssertionError(f'{noise}: not 2 launches a chunk of each '
+                                 f'NMS kernel ({counts})')
         bx, sc, kept = (t.cpu().numpy() for t in (boxes, scores, mask))
         assert bx.shape == (B, 20, 100, 4), bx.shape
         if not (np.isfinite(bx).all() and np.isfinite(sc[kept]).all()):
@@ -766,7 +879,8 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
             kept_per_image=float(kept.sum() / B),
             # after the cap of 100 per image; above 100 only for ties
             final_per_image=final / B,
-            launches={k: counts[k] for k in PATH_KERNELS[noise]},
+            launches={k: counts[k] for k in PATH_KERNELS[noise]
+                      + NMS_KERNELS},
             kinds_timed=kinds_drawn(noise, key, range(3 * B, 8 * B)))
         r = result[name]
         log(f'main path {name}: {B / med:.1f} img/s (median of 5 chunks, '
@@ -855,8 +969,82 @@ def profiling_path(dev, card: str) -> dict:
     return dict(launches={k: counts[k] for k in names}, img_per_s=ips)
 
 
+def dataset_loop(card: str) -> dict:
+    """The dataset loop on the card: a numpy-written rrData dataset of
+    LOOP_IMAGES 600x1000 `.npy` images under build/ (filled rectangles as
+    'person' boxes), `test_net_batched` with a seeded vgg16 (bf16) of
+    rrData's two classes on sap_median_var0.4 through the port's rrData.
+    The 10 APs must be finite and in [0, 1]; chunk 0's detections must
+    match detect_chunk + limit_per_image on the same images and keys
+    (phase 4's tolerance); the ground truth as detections must score
+    1.0."""
+    import os.path as osp
+    import pickle
+    import shutil
+
+    root = osp.join(default_config().ROOT_DIR, 'build', 'chip_smoke_data')
+    shutil.rmtree(root, ignore_errors=True)
+    pdir, gt = synthetic.write_rrdata(root, LOOP_IMAGES, (H, W), seed=12)
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    imdb = rrData('test', config=cfg, pixel_dir=pdir)
+    model = FasterRCNN('vgg16', num_classes=imdb.num_classes,
+                       cfg=default_config())
+    params = model.init(torch.Generator().manual_seed(0))
+    model.to(DEV)
+    params = {k: v.to(DEV) for k, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aps = test_net_batched(model, params, imdb, 'vgg16_seeded', LOOP_NOISE,
+                           eval_batch=B, config=cfg, bucket=BUCKET)
+    wall = time.perf_counter() - t0
+    if len(aps) != 10 or not all(np.isfinite(a) and 0 <= a <= 1
+                                 for a in aps):
+        raise AssertionError(f'dataset loop: APs {aps}')
+    out_dir = get_output_dir(imdb.name, 'vgg16_seeded', cfg)
+    with open(osp.join(out_dir, 'detections.pkl'), 'rb') as f:
+        loop_dets = pickle.load(f)[1]
+
+    # chunk 0 again through detect_chunk, as the loop builds it
+    raw = torch.from_numpy(np.stack([read_bgr(imdb.image_path_at(i))
+                                     for i in range(B)])).to(DEV)
+    geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=DEV)
+    boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
+        model, params, prng.PRNGKey(cfg.RNG_SEED), list(range(B)), raw,
+        geom, geom[:, 2:], make_pipeline(LOOP_NOISE, mode='TEST'), BUCKET))
+    kept = np.stack([limit_per_image(boxes[j], scores[j], mask[j], 100)
+                     for j in range(B)])
+    matched = total = 0
+    for j in range(B):
+        want = _dets(boxes, scores, kept, j, 0)
+        got = loop_dets[j]
+        if abs(len(want) - len(got)) > 1:
+            raise AssertionError(f'dataset loop image {j}: {len(got)} '
+                                 f'detections, detect_chunk {len(want)}')
+        for row in want:
+            total += 1
+            matched += bool(got.size and np.abs(got - row).max(1).min()
+                            < 0.5)
+    if total == 0 or matched / total < 0.95:
+        raise AssertionError(f'dataset loop chunk 0: {matched}/{total} '
+                             f'detections match detect_chunk')
+    gt_aps = imdb.evaluate_detections(synthetic.gt_detections(imdb, gt),
+                                      osp.join(root, 'gt_eval'))
+    if len(gt_aps) != 10 or not np.allclose(gt_aps, 1.0, rtol=1e-12,
+                                            atol=0):
+        raise AssertionError(f'ground truth scored {gt_aps}')
+    log(f'dataset loop: {LOOP_IMAGES} images of {H}x{W} in {wall:.2f} s '
+        f'({LOOP_IMAGES / wall:.1f} img/s, load and evaluation included); '
+        f'AP@.5 {aps[0]:.4f}, AP@[.5,.95] {np.mean(aps):.4f}; chunk 0 '
+        f'{matched}/{total} detections match detect_chunk; ground truth '
+        f'scores {np.mean(gt_aps):.4f}  [{card}]')
+    return dict(images=LOOP_IMAGES, wall_s=wall, img_per_s=LOOP_IMAGES / wall,
+                aps=aps, chunk0_matched=[matched, total])
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names them
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
+               'greedy_kernel',
                'mix_noise_kernel', 'mix_bilateral_kernel', 'brownian_',
                'bloom_kernel', 'bilateral_kernel', 'threefry_kernel',
                'sap_stages_kernel')
@@ -912,7 +1100,7 @@ def main() -> int:
         print('chip_smoke: no CUDA device; this script runs only on a GPU',
               file=sys.stderr)
         return 1
-    dev = 'cuda'
+    dev = DEV
     set_matmul_precision()
     card = card_line()
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
@@ -933,14 +1121,20 @@ def main() -> int:
     res = chunk_inputs(dev, 'res101')
     e2e.update(main_path(res, card, RES_NOISES, 'res101 '))
     e2e[PROFILE_PATH] = profiling_path(dev, card)
+    loop = dataset_loop(card)
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
     # the kernels' device times (`later`): only now, after every timed
     # chunk
-    for r in rows:
-        for k, v in r.items():
+    def resolve(d):
+        for k, v in d.items():
             if isinstance(v, functools.partial):
-                r[k] = v()
+                d[k] = v()
+            elif isinstance(v, dict):
+                resolve(v)
+
+    for r in rows:
+        resolve(r)
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
@@ -958,7 +1152,8 @@ def main() -> int:
                 f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
-    log(json.dumps({'main_path': e2e, 'profile': prof, 'card': card}))
+    log(json.dumps({'main_path': e2e, 'dataset_loop': loop,
+                    'profile': prof, 'card': card}))
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -12,7 +12,7 @@ KEYS = ['TEST.SCALES', 'TEST.MAX_SIZE', 'TEST.NMS', 'TEST.RPN_NMS_THRESH',
         'TEST.RPN_TOP_N', 'TRAIN.BBOX_NORMALIZE_MEANS',
         'TRAIN.BBOX_NORMALIZE_STDS', 'PIXEL_MEANS', 'RNG_SEED',
         'POOLING_SIZE', 'ANCHOR_SCALES', 'ANCHOR_RATIOS', 'RPN_CHANNELS',
-        'ROOT_DIR', 'EXP_DIR', 'RESNET.MAX_POOL']
+        'ROOT_DIR', 'DATA_DIR', 'EXP_DIR', 'RESNET.MAX_POOL']
 
 
 def _get(cfg, dotted):

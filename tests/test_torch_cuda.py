@@ -68,6 +68,114 @@ def test_suppression_masks_match_plain(dev, n):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+def _nms_batch(seed, p, n, ties=False):
+    """(p, n, 4) boxes taken as score-sorted, with duplicates, and a (p, n)
+    validity mask with invalid rows; ties=True clusters the boxes so that
+    long suppression chains form."""
+    rng = np.random.RandomState(seed)
+    span = 60 if ties else 900
+    xy = rng.uniform(0, span, (p, n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 300, (p, n, 2))], -1)
+    boxes[:, 1::9] = boxes[:, ::9][:, :boxes[:, 1::9].shape[1]]   # dups
+    if ties:
+        boxes = np.round(boxes / 8) * 8
+    valid = rng.uniform(size=(p, n)) > 0.15
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize('p,n,max_out,ties', [(8, 6144, 300, False),
+                                              (8, 6144, 6144, False),
+                                              (160, 320, 100, True)])
+def test_greedy_keep_matches_plain(dev, p, n, max_out, ties):
+    """The walk kernel's keep positions bit-exact against its plain
+    version (fixpoint sweeps): the RPN's 8 x 6144 with and without the
+    early stop, and the postprocess batch with ties."""
+    from tpudenoise_torch.ops import nms
+    boxes, valid = _nms_batch(n + max_out, p, n, ties)
+    words = nms.build_suppression_masks(boxes, 0.7 if n > 320 else 0.3)
+    want = nms.greedy_keep_plain(words, valid, max_out)
+    got = nms.greedy_keep(words.to(dev), valid.to(dev), max_out)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got.cpu().long(), want, atol=0, rtol=0)
+
+
+def test_suppression_masks_postprocess_batch(dev):
+    """Kernel 3 on the postprocess shape (160 problems of 320 boxes) with
+    invalid (zero-padded) rows, word for word."""
+    from tpudenoise_torch.ops import nms
+    boxes, valid = _nms_batch(5, 160, 320, ties=True)
+    boxes = torch.where(valid[..., None], boxes, 0.0)
+    boxes[:, 300:] = 0.0
+    want = nms.build_suppression_masks(boxes, 0.3)
+    got = nms.build_suppression_masks_cuda(boxes.to(dev), 0.3).cpu()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_nms_entries_do_not_synchronize(dev):
+    """nms_packed, nms_fixpoint, proposal_layer and postprocess_detections
+    on device-resident inputs under sync debug mode 'error' (second calls:
+    the first build the kernels); the two NMS entries keep what the same
+    calls keep on the CPU."""
+    from tpudenoise_torch.eval.harness import postprocess_detections
+    from tpudenoise_torch.ops import nms
+    from tpudenoise_torch.ops.anchors import anchor_grid
+    from tpudenoise_torch.ops.proposal import proposal_layer
+    rng = np.random.RandomState(2)
+    boxes, valid = _nms_batch(3, 2, 1000)
+    scores = torch.from_numpy(np.round(rng.uniform(size=(2, 1000)) * 16)
+                              .astype(np.float32) / 16)
+    anchors = anchor_grid(19, 32)
+    k = anchors.shape[0]
+    rpn_s = torch.from_numpy(rng.uniform(size=(2, k)).astype(np.float32))
+    rpn_d = torch.from_numpy((rng.randn(2, k, 4) * 0.2).astype(np.float32))
+    im_hw = torch.tensor([[300., 500.], [280., 512.]])
+    r, c = 300, 5
+    rois = torch.from_numpy(np.concatenate([rng.uniform(0, 200, (2, r, 2)),
+                                            rng.uniform(220, 400, (2, r, 2))],
+                                           -1).astype(np.float32))
+    roi_mask = torch.from_numpy(rng.uniform(size=(2, r)) > 0.1)
+    cls_prob = torch.softmax(torch.from_numpy(rng.randn(2, r, c).astype(
+        np.float32)), -1)
+    bbox_pred = torch.from_numpy((rng.randn(2, r, 4 * c) * 0.1).astype(
+        np.float32))
+    im_info = torch.tensor([[400., 500., 1.0], [400., 512., 1.0]])
+    host = dict(boxes=boxes, scores=scores, valid=valid, rpn_s=rpn_s,
+                rpn_d=rpn_d, anchors=anchors, im_hw=im_hw, rois=rois,
+                roi_mask=roi_mask, cls_prob=cls_prob, bbox_pred=bbox_pred,
+                im_info=im_info)
+    card = {k: v.to(dev) for k, v in host.items()}
+    calls = {
+        'nms_packed': lambda t: nms.nms_packed(
+            t['boxes'], t['scores'], 0.7, 300, valid=t['valid']),
+        'nms_fixpoint': lambda t: nms.nms_fixpoint(
+            t['boxes'][:, :300], t['scores'][:, :300], 0.3, 100,
+            valid=t['valid'][:, :300]),
+        'proposal_layer': lambda t: proposal_layer(
+            t['rpn_s'], t['rpn_d'], t['anchors'], t['im_hw'], 0.7, 2000,
+            300),
+        'postprocess_detections': lambda t: postprocess_detections(
+            t['rois'], t['roi_mask'], t['cls_prob'], t['bbox_pred'],
+            t['im_info'], c, 0.3, 0.05)}
+    for name, call in calls.items():
+        first = call(card)                  # builds and warms
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = call(card)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        for g, f in zip(got, first):
+            assert torch.equal(g, f), name
+        if name.startswith('nms'):
+            # the same inputs on the CPU: the same keep set
+            for g, w in zip(got, call(host)):
+                assert torch.equal(g.cpu(), w), name
+        assert got[-1].any(), name
+
+
 ALL_KINDS = [(0, 0.0), (1, 0.1), (2, 0.0), (3, 0.4), (4, 0.5), (5, 7.0),
              (6, 0.6), (7, 0.09), (8, 100.0), (9, 0.1), (10, 0.2),
              (11, 0.0), (12, 0.0), (7, 0.9), (8, -1.0), (5, 10.0)]

@@ -58,7 +58,58 @@ def test_new_modules_are_walked():
                                                   'tpudenoise_torch.')}
     assert {'tpudenoise_torch.models.backbones.resnet',
             'tpudenoise_torch.benchmarks.profile_sap_breakdown',
-            'tpudenoise_torch.benchmarks.profile_fused'} <= names
+            'tpudenoise_torch.benchmarks.profile_fused',
+            'tpudenoise_torch.data.voc_like',
+            'tpudenoise_torch.data.cache_pixels',
+            'tpudenoise_torch.data.synthetic',
+            'tpudenoise_torch.eval.voc_eval',
+            'tpudenoise_torch.utils.image_io'} <= names
+
+
+def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
+    """With jax, flax, `tpudenoise`, cv2 and PIL refused (as on the GPU
+    machine): the new data, eval and image modules import, and
+    `test_net_batched` runs a tiny seeded vgg16 over a numpy-written
+    rrData dataset read from its `.npy` pixels, scoring 10 finite APs."""
+    refused = REFUSED + ('cv2', 'PIL')
+    code = textwrap.dedent(f'''
+        import importlib.abc, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split('.')[0] in {refused!r}:
+                    raise ImportError('refused: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import numpy as np, torch
+        from tpudenoise_torch.core.config import default_config
+        from tpudenoise_torch.data import cache_pixels, synthetic
+        from tpudenoise_torch.data.voc_like import rrData
+        from tpudenoise_torch.eval import harness, voc_eval
+        from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+        from tpudenoise_torch.utils import image_io
+        root = {str(tmp_path)!r}
+        pdir, gt = synthetic.write_rrdata(root, 3, size=(90, 120), seed=1)
+        cfg = default_config()
+        cfg.DATA_DIR = cfg.ROOT_DIR = root
+        cfg.TEST.SCALES, cfg.TEST.MAX_SIZE = (90,), 120
+        cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N = 64, 8
+        d = rrData('test', config=cfg, pixel_dir=pdir)
+        assert image_io.read_bgr(d.image_path_at(0)).shape == (90, 120, 3)
+        m = FasterRCNN('vgg16', num_classes=2, cfg=cfg,
+                       dtype=torch.float32)
+        params = m.init(torch.Generator().manual_seed(0))
+        aps = harness.test_net_batched(m, params, d, 'w',
+                                       'sap_median_var0.4', eval_batch=2,
+                                       config=cfg, bucket=(96, 128))
+        assert len(aps) == 10 and np.isfinite(aps).all(), aps
+        bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
+        print('LOOP OK', bad)
+    ''')
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'LOOP OK []' in res.stdout, res.stdout[-2000:]
 
 
 def test_chip_smoke_refuses_without_a_gpu():

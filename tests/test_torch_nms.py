@@ -191,3 +191,139 @@ def test_proposal_top_layer_matches_jax():
     np.testing.assert_array_equal(s[0].numpy(), np.asarray(js))
     np.testing.assert_allclose(p[0].numpy(), np.asarray(jp), atol=1e-4,
                                rtol=0)
+
+
+def _pair_terms(a, b):
+    """inter and den of box pairs, f32, in the reference's operation
+    order (the kernel's)."""
+    f = np.float32
+    with np.errstate(all='ignore'):
+        ba = (a[:, 2] - a[:, 0] + f(1)) * (a[:, 3] - a[:, 1] + f(1))
+        area = (b[:, 2] - b[:, 0] + f(1)) * (b[:, 3] - b[:, 1] + f(1))
+        iw = np.maximum(f(0), np.minimum(a[:, 2], b[:, 2])
+                        - np.maximum(a[:, 0], b[:, 0]) + f(1))
+        ih = np.maximum(f(0), np.minimum(a[:, 3], b[:, 3])
+                        - np.maximum(a[:, 1], b[:, 1]) + f(1))
+        inter = iw * ih
+        return inter, (ba + area) - inter
+
+
+def _degenerate_pairs(rng, k):
+    """Zero-width and inverted boxes (den 0 or negative), huge and
+    infinite coordinates (den inf or NaN), tiny boxes (den subnormal)."""
+    f = np.float32
+    x, y = rng.uniform(0, 100, (2, k)).astype(f)
+    w, h = rng.uniform(-3, 3, (2, k)).astype(f)
+    a = np.stack([x, y, x + w, y + h], 1)
+    b = a + rng.uniform(-2, 2, (k, 4)).astype(f)
+    b[: k // 4, 2] = f(np.inf)
+    b[k // 4: k // 2, 0] = f(3e38)
+    a[k // 2: 3 * k // 4] = np.stack([x, y, x - f(1) + f(1e-30),
+                                      y - f(1) + f(1e-30)], 1)[k // 2:
+                                                               3 * k // 4]
+    a[3 * k // 4:, 3] = f(np.nan)
+    return a, b
+
+
+@pytest.mark.parametrize('thresh', [0.3, 0.5, 0.7])
+def test_divide_free_predicate_equals_f32_division(thresh):
+    """`iou_exceeds` (the kernel's predicate in numpy) against the f32
+    divide on near-threshold pairs, on quotients one ulp either side of
+    the threshold, and on degenerate boxes."""
+    rng = np.random.RandomState(int(thresh * 10))
+    f = np.float32
+    a, b = near_threshold_pairs(rng, 200000, thresh)
+    c, d = _degenerate_pairs(rng, 40000)
+    inter, den = (np.concatenate(v) for v in zip(_pair_terms(a, b),
+                                                 _pair_terms(c, d)))
+    # dens that put inter/den on, and one ulp beside, the threshold
+    near = (inter[:200000] / f(thresh)).astype(f)
+    inter = np.concatenate([inter, np.tile(inter[:200000], 3)])
+    den = np.concatenate([den, near, np.nextafter(near, f(np.inf)),
+                          np.nextafter(near, f(-np.inf))])
+    with np.errstate(all='ignore'):
+        want = inter / den > f(thresh)
+    got = tnms.iou_exceeds(inter, den, thresh)
+    np.testing.assert_array_equal(got, want)
+    assert 0.2 < want.mean() < 0.8
+    assert (den <= 0).any() and (~np.isfinite(den)).any()
+
+
+def _walk_np(words, valid, max_out):
+    """The walk kernel's strips in numpy: warp 0's in-order decision from
+    the diagonal words, then the kept rows ORed into the removed bits of
+    the later columns; stops once max_out boxes are kept."""
+    nw, n = words.shape
+    u = words.view(np.uint32)
+    removed = np.zeros(n, bool)
+    keep = []
+    for s in range(nw):
+        kept = 0
+        for c in range(32):
+            j = 32 * s + c
+            if valid[j] and not removed[j] and not (u[s, j] & kept):
+                kept |= 1 << c
+        keep += [32 * s + c for c in range(32) if kept >> c & 1]
+        if len(keep) >= max_out:
+            break
+        removed |= (u[s] & np.uint32(kept)) != 0
+    return (keep + [-1] * max_out)[:max_out]
+
+
+@pytest.mark.parametrize('n,thresh,max_out', [(512, 0.7, 300),
+                                              (512, 0.7, 512),
+                                              (320, 0.3, 100)])
+def test_walk_equals_fixpoint(n, thresh, max_out):
+    """The greedy walk's algorithm (numpy) and `greedy_keep`'s plain
+    version give the same positions on packed words with ties."""
+    rng = np.random.RandomState(n + max_out)
+    boxes = torch.from_numpy(np.stack([make_boxes(rng, n) for _ in range(2)]))
+    valid = torch.from_numpy(rng.uniform(size=(2, n)) > 0.1)
+    words = tnms.build_suppression_masks_cuda(boxes, thresh)
+    got = tnms.greedy_keep(words, valid, max_out)
+    for p in range(2):
+        np.testing.assert_array_equal(
+            got[p].numpy(), _walk_np(words[p].numpy(), valid[p].numpy(),
+                                     max_out))
+    with pytest.raises(ValueError):
+        tnms.greedy_keep(words[:, 1:], valid, max_out)
+
+
+def _postprocess_inputs(seed, b=2, c=4, r=300):
+    """Per-class NMS inputs at postprocess shapes: (b, c, r) with tied
+    scores, duplicate and near-threshold boxes, and invalid entries."""
+    rng = np.random.RandomState(seed)
+    boxes = np.stack([np.stack([make_boxes(rng, r) for _ in range(c)])
+                      for _ in range(b)])
+    scores = (np.round(rng.uniform(size=(b, c, r)) * 8) / 8).astype(
+        np.float32)
+    valid = rng.uniform(size=(b, c, r)) > 0.25
+    valid[0, 1] = False                      # a class with nothing valid
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize('thresh', [0.3, 0.7])
+def test_packed_fixpoint_equals_dense_and_oracle(thresh):
+    """`nms_fixpoint_packed` (the card's route: pad 300 -> 320, kernel 3,
+    the walk) equals the dense route at postprocess shapes, and both keep
+    what `nms_py` keeps, in order, for the first 100."""
+    boxes, scores, valid = _postprocess_inputs(int(thresh * 10))
+    args = (torch.from_numpy(boxes), torch.from_numpy(scores), thresh, 100)
+    dk, dm = tnms.nms_fixpoint(*args, valid=torch.from_numpy(valid))
+    pk, pm = tnms.nms_fixpoint_packed(*args, valid=torch.from_numpy(valid))
+    assert pk.shape == (2, 4, 100) and pk.dtype == torch.int32
+    np.testing.assert_array_equal(pk.numpy(), dk.numpy())
+    np.testing.assert_array_equal(pm.numpy(), dm.numpy())
+    assert not pm[0, 1].any() and pm.sum() > 0
+    for bi in range(2):
+        for ci in range(4):
+            v = valid[bi, ci]
+            # nms_py orders ties by reversed index; the port (as the
+            # reference's nms_fixpoint) by index: break them the same way,
+            # and stay in f32 as the port's IoU does
+            s = scores[bi, ci] - (np.arange(300) * 1e-6).astype(np.float32)
+            dets = np.concatenate([boxes[bi, ci], s[:, None]], 1)[v]
+            assert dets.dtype == np.float32
+            want = np.flatnonzero(v)[jnms.nms_py(dets, thresh)][:100]
+            got = pk[bi, ci].numpy()[pm[bi, ci].numpy()]
+            np.testing.assert_array_equal(got, want)

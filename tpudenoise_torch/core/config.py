@@ -48,6 +48,7 @@ def default_config() -> AttrDict:
     C.PIXEL_MEANS = np.array([[[102.9801, 115.9465, 122.7717]]])
     C.RNG_SEED = 3
     C.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), '..', '..'))
+    C.DATA_DIR = osp.abspath(osp.join(C.ROOT_DIR, 'data'))
     C.EXP_DIR = 'default'
     C.POOLING_SIZE = 7
     C.ANCHOR_SCALES = [8, 16, 32]

@@ -1,0 +1,61 @@
+"""Decode a dataset's JPEGs once into `.npy` pixels, on a host with cv2.
+
+    python -m tpudenoise_torch.data.cache_pixels [--image-set test]
+        [--year 2021] [--data-dir DIR] [--out DIR]
+
+Each image of the rrData image set goes through `cv2.imread` (the reader
+of the reference's loop) into `<out>/<index>.npy`, (H, W, 3) uint8 BGR;
+`<out>` defaults to `build/pixels/<imdb name>` at the repository root,
+which git ignores and a copy of the working tree keeps.  Then
+`rrData(..., pixel_dir=<out>)` makes the dataset loop read those files on
+a machine without cv2 or PIL, pixel for pixel what the reference reads.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+
+import numpy as np
+
+from tpudenoise_torch.core.config import default_config
+from tpudenoise_torch.data.voc_like import rrData
+from tpudenoise_torch.utils.image_io import read_bgr
+
+
+def default_pixel_dir(imdb_name: str, config=None) -> str:
+    return osp.join((config or default_config()).ROOT_DIR, 'build',
+                    'pixels', imdb_name)
+
+
+def cache(imdb_obj, out_dir: str) -> int:
+    """Write every image of imdb_obj (an rrData without pixel_dir, so its
+    JPEGs) as out_dir/<index>.npy; returns the number written."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i, index in enumerate(imdb_obj.image_index):
+        np.save(osp.join(out_dir, index + '.npy'),
+                read_bgr(imdb_obj.image_path_at(i)))
+    return imdb_obj.num_images
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--image-set', default='test')
+    ap.add_argument('--year', default='2021')
+    ap.add_argument('--data-dir', default=None,
+                    help='DATA_DIR (default: the config\'s, ROOT_DIR/data)')
+    ap.add_argument('--out', default=None)
+    args = ap.parse_args(argv)
+    cfg = default_config()
+    if args.data_dir:
+        cfg.DATA_DIR = osp.abspath(args.data_dir)
+    d = rrData(args.image_set, args.year, config=cfg)
+    out = args.out or default_pixel_dir(d.name, cfg)
+    n = cache(d, out)
+    print(f'{n} images of {d.name} cached in {out}')
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

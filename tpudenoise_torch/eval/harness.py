@@ -23,6 +23,7 @@ from tpudenoise_torch.ops.boxes import (bbox_transform_inv,
 from tpudenoise_torch.ops.nms import NEG_INF, nms_fixpoint
 from tpudenoise_torch.ops.resize import prep_on_device
 from tpudenoise_torch.utils.blob import derive_bucket, rescale_geometry
+from tpudenoise_torch.utils.image_io import image_hw, read_bgr
 
 
 def set_matmul_precision():
@@ -121,10 +122,9 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     `num_classes`, `image_path_at`, `name`, `evaluate_detections`) on the
     device of the model's parameters.  All images must share one raw
     shape (as rrData's do); they run in chunks of `eval_batch` through
-    `detect_chunk`.  Writes detections.pkl and returns
-    imdb_obj.evaluate_detections(...)."""
-    import cv2
-    import PIL.Image
+    `detect_chunk`.  Images are read through `utils.image_io`: `.npy`
+    pixels (rrData's pixel_dir) need neither cv2 nor PIL.  Writes
+    detections.pkl and returns imdb_obj.evaluate_detections(...)."""
     if compute_id:
         _not_ported('compute_id (TwoNN probes)', 'Queue 1 item 14')
     if mesh is not None:
@@ -147,7 +147,7 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     key = prng.PRNGKey(C.RNG_SEED)
     t_size, m_size = C.TEST.SCALES[0], C.TEST.MAX_SIZE
 
-    shapes = {PIL.Image.open(imdb_obj.image_path_at(i)).size[::-1]
+    shapes = {image_hw(imdb_obj.image_path_at(i))
               for i in range(num_images)}
     if len(shapes) > 1:
         _not_ported('noise buckets for datasets of several image shapes',
@@ -166,7 +166,7 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
         # pad a partial chunk with its last index; those results are dropped
         chunk = chunk + [chunk[-1]] * (eval_batch - n_real)
         raw = torch.from_numpy(np.stack(
-            [cv2.imread(imdb_obj.image_path_at(i)) for i in chunk])
+            [read_bgr(imdb_obj.image_path_at(i)) for i in chunk])
         ).to(device)
         boxes_c, scores_c, mask_c = detect_chunk(
             model, params, key, chunk, raw, geom, geom[:, 2:],

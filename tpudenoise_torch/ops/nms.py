@@ -1,16 +1,18 @@
 """Non-maximum suppression (counterpart of `tpudenoise/ops/nms.py`).
 
-* `nms_fixpoint`: exact greedy NMS by fixpoint sweeps over the dense
-  suppression matrix of the score-sorted boxes, batched over leading dims
-  (the per-class NMS of the test path).
-* `nms_packed`: the same, with the suppression matrix packed into int32
-  words by `build_suppression_masks_cuda` (the RPN proposal NMS at
-  6000 boxes).  Bit b of word [wi, j] says box wi*32+b suppresses box j.
+* `nms_fixpoint`: exact greedy NMS batched over leading dims (the
+  per-class NMS of the test path).  On CPU tensors it iterates fixpoint
+  sweeps over the dense suppression matrix of the score-sorted boxes; on
+  CUDA tensors it takes the packed route (`nms_fixpoint_packed`).
+* `nms_packed`: the same over the suppression matrix packed into int32
+  words by `build_suppression_masks_cuda` (the RPN proposal NMS at 6000
+  boxes).  Bit b of word [wi, j] says box wi*32+b suppresses box j.
 
-Both iterate alive[j] = valid[j] & !any_{i<j}(M[i, j] & alive[i]) to its
-fixpoint, which is the greedy keep set.  Sweeps run in rounds of a few
-between checks for change (a sweep past the fixpoint changes nothing), so
-the host waits on the device once per round, not once per sweep.
+The keep set is the greedy one: alive[j] = valid[j] &
+!any_{i<j}(M[i, j] & alive[i]).  On the card `greedy_keep` walks the words
+once in score order (one block per problem), so NMS never waits on the
+host.  Its plain version, for CPU tensors, iterates that equation to its
+fixpoint in rounds of a few sweeps between checks for change.
 
 Indices refer to the input order, padded with -1, plus a validity mask.
 """
@@ -27,7 +29,9 @@ _PACK = 32
 _SWEEPS_PER_CHECK = 4
 
 # kernel launches, counted where the wrapper launches its kernel
-launches = {'suppression_masks': 0}
+launches = {'suppression_masks': 0, 'greedy_keep': 0}
+# the walk kernel holds at most this many boxes a problem
+MAX_WALK_N = 512 * 24
 
 
 def _iou_tile(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -44,6 +48,35 @@ def _iou_tile(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
                       + 1.0)
     inter = w * h
     return inter / ((ba + areas) - inter)
+
+
+def iou_exceeds(inter: np.ndarray, den: np.ndarray,
+                iou_threshold: float) -> np.ndarray:
+    """fl(inter / den) > f32(iou_threshold) without the divide, step for
+    step as `csrc/nms_mask.cu` decides it (float32 inter and den).
+
+    For den finite and > 0 the quotient rounds above t iff inter > m*den,
+    or inter == m*den and the float after t is even (the tie rounds to
+    it); m is the midpoint between t and that float, and m*den is exact
+    in float64.  Two float32 products bracket m*den first, for den and t
+    in [2^-60, 2^60].  Every other den keeps the IEEE divide."""
+    f = np.float32
+    inter, den = np.asarray(inter, f), np.asarray(den, f)
+    t = f(iou_threshold)
+    nxt = np.nextafter(t, f(np.inf))
+    mid = (np.float64(t) + np.float64(nxt)) * 0.5
+    even = (nxt.view(np.uint32) & 1) == 0
+    with np.errstate(all='ignore'):
+        by_div = inter / den > t
+        hi, lo = t * f(1 + 2.0**-19), t * f(1 - 2.0**-19)
+        lhs, rhs = inter.astype(np.float64), mid * den.astype(np.float64)
+        exact = (lhs > rhs) | ((lhs == rhs) & even)
+        band = (2.0**-60 <= t <= 2.0**60) & (den >= f(2.0**-60)) & (
+            den <= f(2.0**60))
+        exact = np.where(band & (inter > den * hi), True,
+                         np.where(band & (inter < den * lo), False, exact))
+    use = np.isfinite(mid) & (den > 0) & np.isfinite(den)
+    return np.where(use, exact, by_div)
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -127,28 +160,79 @@ def _first_kept(alive: torch.Tensor, max_outputs: int) -> torch.Tensor:
     return keep[..., :max_outputs]
 
 
+def greedy_keep_plain(words: torch.Tensor, in_valid: torch.Tensor,
+                      max_outputs: int) -> torch.Tensor:
+    """Plain version of `greedy_keep`: fixpoint sweeps over the packed
+    words, then the first max_outputs alive positions."""
+    def suppressed_by(alive):
+        alive_p = _pack_bits(alive)                         # (P, N/32)
+        return ((words & alive_p[..., None]) != 0).any(dim=1)
+
+    return _first_kept(_fixpoint(in_valid, suppressed_by), max_outputs)
+
+
+def greedy_keep(words: torch.Tensor, in_valid: torch.Tensor,
+                max_outputs: int) -> torch.Tensor:
+    """(P, N/32, N) int32 suppression words of score-sorted boxes and their
+    (P, N) bool validity -> (P, max_outputs) sorted positions of the
+    greedy keep set, -1 padded: the walk kernel for CUDA tensors (int32,
+    no host synchronisation), the plain version for CPU tensors
+    (int64)."""
+    p, nw, n = words.shape
+    if words.dtype != torch.int32 or in_valid.dtype != torch.bool:
+        raise TypeError(f'need int32 words and bool validity, got '
+                        f'{words.dtype} and {in_valid.dtype}')
+    if nw * _PACK != n or in_valid.shape != (p, n):
+        raise ValueError(f'words {tuple(words.shape)} and validity '
+                         f'{tuple(in_valid.shape)} do not agree')
+    if max_outputs < 1:
+        raise ValueError(f'max_outputs={max_outputs} must be positive')
+    if words.device.type == 'cpu':
+        return greedy_keep_plain(words, in_valid, max_outputs)
+    if words.device.type != 'cuda':
+        raise ValueError(f'unsupported device {words.device}')
+    if n > MAX_WALK_N:
+        raise ValueError(f'N={n} exceeds the walk kernel\'s {MAX_WALK_N}')
+    keep = torch.empty((p, max_outputs), dtype=torch.int32,
+                       device=words.device)
+    cuda_build.launch('nms_mask', 'greedy_keep', words.contiguous(),
+                      in_valid.contiguous(), keep, p, n, max_outputs)
+    launches['greedy_keep'] += 1
+    return keep
+
+
 def _finish(keep_sorted, order):
     mask = keep_sorted >= 0
     if order is not None:
-        keep_sorted = torch.where(
-            mask, torch.gather(order, -1, keep_sorted.clamp(min=0)), -1)
+        keep_sorted = torch.where(mask, torch.gather(
+            order, -1, keep_sorted.clamp(min=0).to(torch.int64)), -1)
     return keep_sorted.to(torch.int32), mask
 
 
-def nms_fixpoint(boxes: torch.Tensor, scores: torch.Tensor,
-                 iou_threshold: float, max_outputs: int,
-                 valid: torch.Tensor | None = None):
-    """Exact greedy NMS over (..., N, 4) boxes and (..., N) scores, dense
-    (..., N, N) suppression matrix.  Returns keep (..., max_outputs) int32
-    and its mask."""
-    n = boxes.shape[-2]
+def _sort_boxes(boxes, scores, valid):
+    """Scores masked by valid, their stable descending order, the boxes in
+    that order and which sorted positions are valid."""
     scores = scores.to(torch.float32)
     if valid is not None:
         scores = torch.where(valid, scores, NEG_INF)
     order = torch.argsort(-scores, dim=-1, stable=True)
     sboxes = torch.gather(boxes.to(torch.float32), -2,
                           order[..., None].expand(*order.shape, 4))
-    in_valid = torch.gather(scores, -1, order) > NEG_INF
+    return order, sboxes, torch.gather(scores, -1, order) > NEG_INF
+
+
+def nms_fixpoint(boxes: torch.Tensor, scores: torch.Tensor,
+                 iou_threshold: float, max_outputs: int,
+                 valid: torch.Tensor | None = None):
+    """Exact greedy NMS over (..., N, 4) boxes and (..., N) scores.
+    Returns keep (..., max_outputs) int32 and its mask.  CPU tensors take
+    the dense (..., N, N) suppression matrix and its fixpoint; CUDA
+    tensors `nms_fixpoint_packed` (the same keep set)."""
+    if boxes.device.type == 'cuda':
+        return nms_fixpoint_packed(boxes, scores, iou_threshold,
+                                   max_outputs, valid)
+    n = boxes.shape[-2]
+    order, sboxes, in_valid = _sort_boxes(boxes, scores, valid)
     tri = torch.ones((n, n), dtype=torch.bool,
                      device=boxes.device).triu(diagonal=1)      # i < j
     m = ((_iou_tile(sboxes, sboxes) > float(np.float32(iou_threshold)))
@@ -161,13 +245,38 @@ def nms_fixpoint(boxes: torch.Tensor, scores: torch.Tensor,
     return _finish(_first_kept(alive, max_outputs), order)
 
 
+def nms_fixpoint_packed(boxes: torch.Tensor, scores: torch.Tensor,
+                        iou_threshold: float, max_outputs: int,
+                        valid: torch.Tensor | None = None):
+    """`nms_fixpoint` through the packed words: the leading dims flatten
+    into P problems, N pads up to a multiple of 32 with invalid boxes,
+    then kernel 3 and the walk (their plain versions on CPU tensors)."""
+    lead, n_in = boxes.shape[:-2], boxes.shape[-2]
+    n = -(-n_in // _PACK) * _PACK
+    boxes = boxes.reshape(-1, n_in, 4)
+    scores = scores.reshape(-1, n_in)
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    valid = valid.expand(*lead, n_in).reshape(-1, n_in)
+    pad = n - n_in
+    boxes = torch.nn.functional.pad(boxes.to(torch.float32), (0, 0, 0, pad))
+    scores = torch.nn.functional.pad(scores.to(torch.float32), (0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    order, sboxes, in_valid = _sort_boxes(boxes, scores, valid)
+    words = build_suppression_masks_cuda(sboxes, iou_threshold)
+    keep, mask = _finish(greedy_keep(words, in_valid, max_outputs), order)
+    return (keep.reshape(*lead, max_outputs),
+            mask.reshape(*lead, max_outputs))
+
+
 def nms_packed(boxes: torch.Tensor, scores: torch.Tensor,
                iou_threshold: float, max_outputs: int,
                valid: torch.Tensor | None = None, presorted: bool = False):
     """Exact greedy NMS over (B, N, 4) boxes via the packed suppression
-    words.  presorted=True asserts the (masked) scores are already
-    non-increasing, as the proposal layer's top-k output is, and skips the
-    sort.  Returns keep (B, max_outputs) int32 and its mask."""
+    words and `greedy_keep`.  presorted=True asserts the (masked) scores
+    are already non-increasing, as the proposal layer's top-k output is,
+    and skips the sort.  Returns keep (B, max_outputs) int32 and its
+    mask."""
     b, n_in, _ = boxes.shape
     tile = 512 if n_in >= 512 else 256
     n = -(-n_in // tile) * tile
@@ -180,15 +289,6 @@ def nms_packed(boxes: torch.Tensor, scores: torch.Tensor,
     if presorted:
         order, sboxes, in_valid = None, boxes, scores > NEG_INF
     else:
-        order = torch.argsort(-scores, dim=-1, stable=True)
-        sboxes = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
-        in_valid = torch.gather(scores, 1, order) > NEG_INF
+        order, sboxes, in_valid = _sort_boxes(boxes, scores, None)
     masks = build_suppression_masks_cuda(sboxes, iou_threshold)
-
-    def suppressed_by(alive):
-        alive_p = _pack_bits(alive)                         # (B, N/32)
-        return ((masks & alive_p[..., None]) != 0).any(dim=1)
-
-    alive = _fixpoint(in_valid, suppressed_by)
-    return _finish(_first_kept(alive, max_outputs), order)
-
+    return _finish(greedy_keep(masks, in_valid, max_outputs), order)
