@@ -24,16 +24,17 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      (gaussian's [0, 1] floats within 1e-6); mix + bilateral also timed
      on 8 images of each kind alone and on 8 images drawn by
      noise_mix_var_all_bilateral's plan (with that plan's bound); bloom
-     on 8 images bit-exact; the standalone bilateral (8, 600, 1000, 3)
-     f32 bit-exact on u8 values (its table form) and on [0, 1] floats
-     (its per-tap expf form), each timed; the per-image sap + median
-     entry on the same shape bit-exact; the
+     on 8 images, u8 and f32, bit for bit, each timed; the standalone
+     bilateral (8, 600, 1000, 3) f32 bit-exact on u8 values (its table
+     form) and on [0, 1] floats (its per-tap expf form), each timed; the
+     per-image sap + median entry on the same shape bit-exact; the
      threefry fields for 8 keys x 1.8M elements: bits and uniforms
-     bit-exact, normals within 2 ulp; the stage-cut sap + median kernels
-     (the profiling forks) on the edge-padded raster of (8, 600, 1000, 3)
-     f32 and u8 images, every stage, and the full stage on a random
-     raster, bit-exact, and again at the profiling scripts' size (B=128),
-     where each is timed;
+     bit-exact, normals within 2 ulp, and poisson's PTRS draw (64 keys x
+     1.8M uniforms) bit-exact, each mode timed with its bound; the
+     stage-cut sap + median kernels (the profiling forks) on the
+     edge-padded raster of (8, 600, 1000, 3) f32 and u8 images, every
+     stage, and the full stage on a random raster, bit-exact, and again
+     at the profiling scripts' size (B=128), where each is timed;
   4. correctness of the whole chunk on a small input: the card's
      detect_chunk (f32) against the same chunk run on the CPU through the
      plain versions, for sap, gauss, noise_mix_var_all_bilateral,
@@ -62,9 +63,10 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      limit_per_image (phase 4's tolerance), the ground truth scoring 1.0,
      and the loop's wall time;
   6. where the time goes: two chunks of each string under torch.profiler
-     (device kernel time, idle share, the port's own kernels' share), and
-     of the res101 sap chunk; then each kernel's device time on phase 3's
-     inputs.
+     (device kernel time, idle share, the port's own kernels' share, split
+     by kernel name with their launches: the threefry draws' device time
+     a chunk gets a line of its own), and of the res101 sap chunk; then
+     each kernel's device time on phase 3's inputs.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
@@ -137,6 +139,8 @@ RES_NOISES = ('sap_median_var0.4',)
 PROFILE_B = 128
 PROFILE_TILES = {'sap_stages_f32': 56, 'sap_stages_u8': 120,
                  'sap_full_padded': 56}
+# poisson's PTRS draw: B images x 4 rounds x (u, v) fields
+PTRS_KEYS = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 # operations per element (one of B*H*W*3), counted from each plain
@@ -464,44 +468,59 @@ def check_kernels(dev) -> list:
 
 
 def check_threefry(dev) -> list:
-    """The threefry fields of the main path (8 keys x 1.8M elements)
-    against the plain version on the card: bits and uniforms bit-exact,
-    normals within 2 ulp; timed as the speckle draw (normals)."""
+    """The threefry fields of the main paths against the plain version on
+    the card: 8 keys x 1.8M elements (one (8, 600, 1000, 3) field) in all
+    three modes, bits and uniforms bit-exact, normals within 2 ulp, and
+    poisson's PTRS draw (64 keys x 1.8M uniforms) bit-exact; each timed
+    with its bound.  The row's own numbers are the speckle draw's
+    (normals)."""
     n = H * W * 3
     keys = torch.from_numpy(prng.split(prng.PRNGKey(11), B).astype(
         np.int64)).to(dev)
+    ptrs = torch.from_numpy(prng.split(prng.PRNGKey(12), PTRS_KEYS).astype(
+        np.int64)).to(dev)
+    scale = float(prng._SQRT2)
     worst = 0
-    for mode, lo, span in (('bits', 0.0, 1.0), ('uniform', 0.0, 1.0),
-                           ('normal', 0.0, 1.0)):
-        scale = float(prng._SQRT2)
-        got = prng.threefry_draw(keys, n, mode, lo, span, scale)
-        want = prng.threefry_draw_plain(keys, n, mode, lo, span, scale)
+    modes = {}
+    for mode, k in (('bits', keys), ('uniform', keys), ('normal', keys),
+                    ('uniform', ptrs)):
+        got = prng.threefry_draw(k, n, mode, 0.0, 1.0, scale)
+        want = prng.threefry_draw_plain(k, n, mode, 0.0, 1.0, scale)
         torch.cuda.synchronize()
         ulp = (got.view(torch.int32).long()
                - want.view(torch.int32).long()).abs()
         m = ulp.max().item()
-        log(f'kernel threefry {mode}: max {m} ulp, '
+        what = f'{mode} {k.shape[0]} x {n}'
+        log(f'kernel threefry {what}: max {m} ulp, '
             f'{(ulp > 0).double().mean().item():.2e} differ (bound: 0 for '
             f'bits and uniforms, 2 ulp for normals)')
         if m > (2 if mode == 'normal' else 0):
-            raise AssertionError(f'threefry {mode} outside its bound')
+            raise AssertionError(f'threefry {what} outside its bound')
         worst = max(worst, (got - want).abs().max().item()
                     if mode == 'normal' else 0.0)
+        del got, want, ulp
+
+        def draw(k=k, mode=mode):
+            return prng.threefry_draw(k, n, mode, 0.0, 1.0, scale)
+
+        modes[what] = dict(ms=time_ms(draw, 20),
+                           device_ms=later(draw, 20, ('threefry_kernel',)),
+                           **bound(4 * k.shape[0] * n,
+                                   OPS[mode] * k.shape[0] * n))
     bits_cpu = prng.threefry_draw(keys[:1].cpu(), 4096, 'bits')
     if not torch.equal(bits_cpu, prng.threefry_draw(keys[:1], 4096,
                                                     'bits').cpu()):
         raise AssertionError('threefry bits differ between card and CPU')
-    draw = (lambda: prng.threefry_draw(keys, n, 'normal', 0.0, 1.0,
-                                       float(prng._SQRT2)))
+    row = modes[f'normal {B} x {n}']
     return [dict(
         name='threefry_draw', route='cuda',
         source='tpudenoise_torch/csrc/threefry.cu',
         replaces='tpudenoise/noise/generators.py:140',
-        max_abs_err=worst, ms=time_ms(draw, 20),
-        device_ms=later(draw, 20, ('threefry_kernel',)),
+        max_abs_err=worst, ms=row['ms'], device_ms=row['device_ms'],
         plain_ms=time_ms(lambda: prng.threefry_draw_plain(
-            keys, n, 'normal', 0.0, 1.0, float(prng._SQRT2)), 3, 1),
-        **bound(4 * B * n, OPS['normal'] * B * n))]
+            keys, n, 'normal', 0.0, 1.0, scale), 3, 1),
+        modes=modes, **{k: row[k] for k in ('bound_ms', 'bound_by',
+                                             'library_ms')})]
 
 
 def check_sap_stages(dev) -> list:
@@ -582,6 +601,9 @@ def check_sap_stages(dev) -> list:
                 f'version')
             per_stage[stage] = dict(
                 ms=time_ms(lambda: run(big, big_seeds, stage), 20),
+                # read after the main paths: bind this stage's inputs now
+                device_ms=later(lambda run=run, big=big, stage=stage: run(
+                    big, big_seeds, stage), 20, ('sap_stages_kernel',)),
                 plain_ms=time_ms(lambda: fk.sap_stages_plain(
                     big, big_seeds, H, w3, stage), 2, 1),
                 # the raster read once, the output written once
@@ -681,18 +703,27 @@ def check_mix_kernels(dev) -> list:
     img = raw[:B]
     params = torch.from_numpy(bloom_params(prng.split(prng.PRNGKey(6), B),
                                            H, W)).to(dev)
-    got = bl.bloom_batched(img, params)
-    torch.cuda.synchronize()
-    err = (got - bloom_apply_scan(img, params)).abs().max().item()
-    log(f'kernel bloom: max |diff| {err} (bit-exact required)')
-    if err != 0:
-        raise AssertionError('bloom kernel differs from its plain version')
+    forms = {'u8': img, 'f32': img.to(torch.float32)}
+    for form, x in forms.items():
+        got = bl.bloom_batched(x, params)
+        torch.cuda.synchronize()
+        bad = (got.view(torch.int32) != bloom_apply_scan(x, params).view(
+            torch.int32)).sum().item()
+        log(f'kernel bloom on {form}: {bad} of {got.numel()} words differ '
+            f'(bit-exact required)')
+        if bad:
+            raise AssertionError(f'bloom kernel differs from its plain '
+                                 f'version on {form}')
+    f32 = forms['f32']
     rows.append(dict(
         name='bloom_batched', route='cuda',
         source='tpudenoise_torch/csrc/bloom.cu',
-        replaces='tpudenoise/noise/pallas_bloom.py:29', max_abs_err=err,
+        replaces='tpudenoise/noise/pallas_bloom.py:77', max_abs_err=0.0,
         ms=time_ms(lambda: bl.bloom_batched(img, params), 20),
         device_ms=later(lambda: bl.bloom_batched(img, params), 20,
+                        ('bloom_kernel',)),
+        f32_ms=time_ms(lambda: bl.bloom_batched(f32, params), 20),
+        f32_device_ms=later(lambda: bl.bloom_batched(f32, params), 20,
                             ('bloom_kernel',)),
         plain_ms=time_ms(lambda: bloom_apply_scan(img, params), 3, 1),
         **bound(5 * img.numel(), OPS['bloom'] * img.numel())))
@@ -1042,7 +1073,8 @@ def dataset_loop(card: str) -> dict:
                 aps=aps, chunk0_matched=[matched, total])
 
 
-# symbols of the port's own kernels (csrc/*.cu), as the profiler names them
+# symbols of the port's own kernels (csrc/*.cu), as the profiler names
+# them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
                'greedy_kernel',
                'mix_noise_kernel', 'mix_bilateral_kernel', 'brownian_',
@@ -1079,12 +1111,21 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
         kern = [e for e in prof.key_averages()
                 if e.device_type.name == 'CUDA' and e.self_device_time_total]
         busy = sum(e.self_device_time_total for e in kern) / 2e3
-        own = sum(e.self_device_time_total for e in kern
-                  if any(k in e.key for k in OWN_KERNELS)) / 2e3
+        # the port's own kernels by name (each kernel under the first
+        # name it holds): (ms, launches) a chunk
+        own_by = {}
+        for e in kern:
+            k = next((k for k in OWN_KERNELS if k in e.key), None)
+            if k:
+                t, c = own_by.get(k, (0.0, 0.0))
+                own_by[k] = (t + e.self_device_time_total / 2e3,
+                             c + e.count / 2)
+        own = sum(t for t, _ in own_by.values())
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         out[name] = dict(
             wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
-            own_kernels_ms=own, kernel_names=len(kern),
+            own_kernels_ms=own, own_by_kernel=own_by,
+            kernel_names=len(kern),
             top=[(e.key[:90], e.self_device_time_total / 2e3, e.count // 2)
                  for e in top])
         log(f'profile {name}: chunk {wall:.2f} ms, device {busy:.2f} ms, '
@@ -1092,6 +1133,13 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
             f'(name, ms/chunk, calls): '
             + '; '.join(f'{k} {t:.3f} x{c}' for k, t, c in out[name]['top'])
             + f'  [{card}]')
+        log(f'profile {name}: port kernels a chunk (ms, launches): '
+            + '; '.join(f'{k} {t:.4f} x{c:g}' for k, (t, c) in own_by.items())
+            + f'  [{card}]')
+        if 'threefry_kernel' in own_by:
+            t, c = own_by['threefry_kernel']
+            log(f'profile {name}: threefry device time a chunk {t:.4f} ms in '
+                f'{c:g} launches  [{card}]')
     return out
 
 
@@ -1145,9 +1193,17 @@ def main() -> int:
             + f", plain {r['plain_ms']:.3f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} main-path launches  [{card}]")
+        for what, t in r.get('modes', {}).items():
+            log(f"  {r['name']} {what}: kernel {t['ms']:.4f} ms (device "
+                f"{t['device_ms']} ms), bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})  [{card}]")
+        if 'f32_ms' in r:
+            log(f"  {r['name']} on f32 images: kernel {r['f32_ms']:.4f} ms "
+                f"(device {r['f32_device_ms']} ms)  [{card}]")
         for stage, t in r.get('stages', {}).items():
             log(f"  {r['name']} {stage} (B={r['batch']}, tile_h="
-                f"{r['tile_h']}): kernel {t['ms']:.3f} ms, plain "
+                f"{r['tile_h']}): kernel {t['ms']:.3f} ms (device "
+                f"{t['device_ms']} ms), plain "
                 f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
     if not all(r['launches'] for r in rows):

@@ -254,6 +254,103 @@ def test_bloom_kernel_matches_plain(dev, shape, dtype):
                                rtol=0)
 
 
+def _same_bits(got, want):
+    """Equal float32 bits (signed zeros told apart), NaN where NaN."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.where(nan, 0, got.view(torch.int32)),
+                       torch.where(nan, 0, want.view(torch.int32)))
+
+
+def _bloom_case(name, dev):
+    """Inputs that take kernel 8's general form in some or all blocks:
+    f32 values outside [0, 255], non-integers, NaN, inf and -0.0; params
+    with an alpha outside [0, 1] or step 8's alpha not 1; and widths that
+    are not a multiple of the 4 pixels a thread takes (u8 and f32)."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.generators import bloom_params
+    h, w = (37, 1001) if name.startswith('width') else (40, 300)
+    rng = np.random.RandomState(len(name))
+    im = rng.randint(0, 256, (3, h, w, 3)).astype(np.float32)
+    params = bloom_params(prng.split(prng.PRNGKey(len(name)), 3), 600, 1000)
+    params[:, :8, 0] = [[5, 60, 120, 30, 90, 10, 100, 70]] * 3  # on-image
+    if name == 'outside [0, 255]':
+        im[0] = im[0] * 2.5 - 200.0
+    elif name == 'non-integers':
+        im[1] += rng.uniform(-0.5, 0.5, im[1].shape).astype(np.float32)
+    elif name == 'nan, inf, -0':
+        im[0, 3:9, 40:90] = np.nan
+        im[1, 10, 7:20] = np.inf
+        im[1, 11, 7:20] = -np.inf
+        im[2, :, :64] = -0.0
+    elif name == 'alpha outside [0, 1]':
+        params[0, 3, 6] = 1.5
+        params[1, 20, 6] = -0.25
+    elif name == 'alpha[8] not 1':
+        params[:2, 8, 6] = 0.5
+    elif name == 'colour outside [0, 255]':
+        params[0, 2, 3] = 300.0
+        params[1, 30, 5] = -7.0
+    im = torch.from_numpy(im).to(dev)
+    if name == 'width u8':
+        im = im.to(torch.uint8)
+    return im, torch.from_numpy(params).to(dev)
+
+
+@pytest.mark.parametrize('name', ['outside [0, 255]', 'non-integers',
+                                  'nan, inf, -0', 'alpha outside [0, 1]',
+                                  'alpha[8] not 1', 'colour outside [0, 255]',
+                                  'width u8', 'width f32'])
+def test_bloom_kernel_general_form_bitexact(dev, name):
+    """Kernel 8 bit for bit against its plain version where blocks leave
+    the fast form (or, for the widths, where threads hold fewer than 4
+    pixels and rows are not 16-byte aligned)."""
+    from tpudenoise_torch.noise.bloom import bloom_batched
+    from tpudenoise_torch.noise.generators import bloom_apply_scan
+    im, params = _bloom_case(name, dev)
+    got = bloom_batched(im, params)
+    torch.cuda.synchronize()
+    _same_bits(got, bloom_apply_scan(im, params))
+
+
+@pytest.mark.parametrize('n', [1, 3, 5, 4095, 4097])
+def test_threefry_kernel_odd_sizes(dev, n):
+    """64 keys (poisson's PTRS draw) at sizes that leave threads part of
+    their 8 counters and put most rows off 16-byte alignment: bits and
+    uniforms exact, normals within 2 ulp."""
+    from tpudenoise_torch.core import prng
+    keys = torch.from_numpy(prng.split(prng.PRNGKey(n + 7), 64).astype(
+        np.int64)).to(dev)
+    for mode in ('bits', 'uniform', 'normal'):
+        got = prng.threefry_draw(keys, n, mode, 0.0, 1.0, 1.41421354)
+        want = prng.threefry_draw_plain(keys, n, mode, 0.0, 1.0, 1.41421354)
+        torch.cuda.synchronize()
+        ulp = (got.view(torch.int32).long()
+               - want.view(torch.int32).long()).abs()
+        assert ulp.max() <= (2 if mode == 'normal' else 0), mode
+
+
+def test_noise_kernel_wrappers_do_not_synchronize(dev):
+    """Second calls of the bloom and threefry wrappers under sync debug
+    mode 'error' (the first calls build the kernels)."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.bloom import bloom_batched
+    im, params = _bloom_case('non-integers', dev)
+    keys = torch.from_numpy(prng.split(prng.PRNGKey(3), 64).astype(
+        np.int64)).to(dev)
+    for strict in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error' if strict else 'default')
+        try:
+            bloom_batched(im, params)
+            bloom_batched(im.to(torch.uint8), params)
+            for mode in ('bits', 'uniform', 'normal'):
+                prng.threefry_draw(keys, 4097, mode, 0.0, 1.0, 1.41421354)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+
+
 def test_wrappers_refuse_other_devices(dev):
     from tpudenoise_torch.noise import fused_kernels as fk
     im = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=dev)

@@ -127,6 +127,7 @@ struct Image {
   uint32_t s0, s1;
   const float* centers;   // (kKPad * 6): lab(3), bgr(3) per centre
   const float* bloom;     // (bloom_steps::kSteps * 8)
+  bool bloom_fast;        // bloom_steps::composite_fast applies
   const float* rows;      // (h, 3w) inclusive row scans (brownian)
   const float* off;       // (h,) exclusive row offsets (brownian)
 };
@@ -145,6 +146,9 @@ __device__ __forceinline__ Image load_image(
   p.s1 = (uint32_t)seeds[2 * b + 1];
   p.centers = centers + (size_t)b * kKPad * 6;
   p.bloom = bloom + (size_t)b * bloom_steps::kSteps * 8;
+  // u8 images are always in range: the params decide (for the whole
+  // block: the kind, and so this branch, is the block's)
+  p.bloom_fast = p.kind == kBloom && bloom_steps::block_fast(p.bloom, true);
   const bool brown = p.kind == kBrownian;
   p.rows = brown ? rows + (size_t)b * h * 3 * w : nullptr;
   p.off = brown ? off + (size_t)b * h : nullptr;
@@ -383,9 +387,17 @@ __device__ void noisy_pixel(const Image& p, int y, int x, const float in[3],
                                    p.level * sqrtf(-2.0f * logf(u))));
       }
       return;
-    case kBloom:
-      bloom_steps::composite(p.bloom, (float)x, (float)y, in, out);
+    case kBloom: {
+      if (!p.bloom_fast) {
+        bloom_steps::composite(p.bloom, (float)x, (float)y, in, out);
+        return;
+      }
+      const float xx[1] = {(float)x};
+      float px[1][3] = {{in[0], in[1], in[2]}};
+      bloom_steps::composite_fast<1>(p.bloom, xx, (float)y, px);
+      for (int c = 0; c < 3; ++c) out[c] = px[0][c];
       return;
+    }
     case kShader:
       out[0] = sat_u8(in[2] * 3.0f);
       out[1] = sat_u8(in[1] * 3.0f);
@@ -464,9 +476,9 @@ mix_noise_kernel(const uint8_t* __restrict__ in, float* __restrict__ out,
                  const float* __restrict__ off, int h, int w) {
   const int b = blockIdx.z, y = blockIdx.y;
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
   const Image p =
       load_image(b, h, w, kind, level, seeds, vals, centers, bloom, rows, off);
+  if (x >= w) return;
   const size_t e = (((size_t)b * h + y) * w + x) * 3;
   float px[3], o[3];
   for (int c = 0; c < 3; ++c) px[c] = (float)(int)in[e + c];

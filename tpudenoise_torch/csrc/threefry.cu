@@ -19,12 +19,23 @@
 //              scale 1 gives the bare erf_inv for callers that contract
 //              the factor into an FMA themselves.
 //
-// What bounds it on this card: integer operations.  Each word costs ~78
-// 32-bit ops (20 add/rotate/xor rounds, 5 key injections) against 4 bytes
-// written, ~20 ops per byte, so a field of 14.4M words (8 images of
-// 600x1000x3) is ~1.1 G ops, ~17 us at the card's 67 T non-tensor op/s
-// against ~17 us for its 58 MB of stores.  One thread per word, stores
-// coalesced across the warp; nothing is read but the key.
+// What bounds it on this card: issued integer instructions.  A word is 20
+// rounds of add, rotate and xor plus 10 key-injection adds, ~75 32-bit
+// operations against 4 bytes written.  The card issues one warp
+// instruction a clock per SM quarter, but runs the rotates (SHF) and xors
+// (LOP3) on the 16-lane integer pipe, at half that rate: with the adds
+// there too (IADD3) that pipe, not the issue slot, is the limit.  So:
+//   * the adds multiply by kOne, a 1 that ptxas cannot see, and issue as
+//     IMAD on the FMA pipe; the integer pipe keeps the rotates and xors,
+//     about half of the instructions, and issue and that pipe balance;
+//   * each thread takes 8 consecutive counters: one key load, key
+//     schedule and index computation for eight words, eight independent
+//     round chains in flight, and 16-byte stores where the row allows
+//     them (scalar stores at a row's end and for rows not 16-byte
+//     aligned).  On the H100, 8 ran 3-5% faster than 4, and 2 slower;
+//   * a normal's erf_inv branches on w < 5 (nearly every word) instead of
+//     selecting each Horner coefficient.
+// Nothing is read but the key; stores are coalesced across the warp.
 //
 // Built with --fmad=false: the only fused multiply-adds are the explicit
 // __fmaf_rn calls, placed where XLA's CPU code contracts.
@@ -36,75 +47,118 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWords = 8;       // consecutive counters a thread
+static_assert(kWords % 4 == 0, "16-byte stores of whole groups of 4");
+
+// 1, in constant memory so that ptxas cannot fold it: a * kOne + b is an
+// IMAD (FMA pipe) where a + b would be an IADD3 (integer pipe)
+__constant__ uint32_t kOne = 1u;
+
+__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b) {
+  return a * kOne + b;
+}
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
   return (x << d) | (x >> (32 - d));
 }
 
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1,
-                                                  uint32_t c_hi,
-                                                  uint32_t c_lo) {
+// threefry2x32 of the counters (0, i0 + j), j < kWords: bits_hi ^ bits_lo
+__device__ __forceinline__ void threefry_words(uint32_t k0, uint32_t k1,
+                                               uint32_t i0,
+                                               uint32_t (&w)[kWords]) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c_hi + ks[0], x1 = c_lo + ks[1];
+  uint32_t x0[kWords], x1[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    x0[j] = ks[0];                 // counter hi word 0
+    x1[j] = (i0 + j) + ks[1];
+  }
 #pragma unroll
   for (int step = 0; step < 5; ++step) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      x0 += x1;
-      x1 = rotl(x1, rot[step % 2][r]) ^ x0;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) {
+        x0[j] = add_fma(x0[j], x1[j]);
+        x1[j] = rotl(x1[j], rot[step % 2][r]) ^ x0[j];
+      }
     }
-    x0 += ks[(step + 1) % 3];
-    x1 += ks[(step + 2) % 3] + (uint32_t)(step + 1);
+    const uint32_t inj1 = ks[(step + 2) % 3] + (uint32_t)(step + 1);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      x0[j] = add_fma(x0[j], ks[(step + 1) % 3]);
+      x1[j] = add_fma(x1[j], inj1);
+    }
   }
-  return x0 ^ x1;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) w[j] = x0[j] ^ x1[j];
 }
 
 __device__ __forceinline__ float unit_float(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
-__constant__ float kLt[9] = {2.81022636e-08f,  3.43273939e-07f,
-                             -3.5233877e-06f,  -4.39150654e-06f,
-                             0.00021858087f,   -0.00125372503f,
-                             -0.00417768164f,  0.246640727f,
-                             1.50140941f};
-__constant__ float kGt[9] = {-0.000200214257f, 0.000100950558f,
-                             0.00134934322f,   -0.00367342844f,
-                             0.00573950773f,   -0.0076224613f,
-                             0.00943887047f,   1.00167406f,
-                             2.83297682f};
-
+// XLA's f32 erf_inv; each branch runs the Horner steps of its
+// coefficients (w < 5: |x| < ~0.9966)
 __device__ __forceinline__ float erf_inv(float x) {
   float w = -log1pf(-(x * x));
-  const bool lt = w < 5.0f;
-  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? kLt[0] : kGt[0];
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, w, lt ? kLt[i] : kGt[i]);
+  float p;
+  if (w < 5.0f) {
+    w = w - 2.5f;
+    p = 2.81022636e-08f;
+    p = __fmaf_rn(p, w, 3.43273939e-07f);
+    p = __fmaf_rn(p, w, -3.5233877e-06f);
+    p = __fmaf_rn(p, w, -4.39150654e-06f);
+    p = __fmaf_rn(p, w, 0.00021858087f);
+    p = __fmaf_rn(p, w, -0.00125372503f);
+    p = __fmaf_rn(p, w, -0.00417768164f);
+    p = __fmaf_rn(p, w, 0.246640727f);
+    p = __fmaf_rn(p, w, 1.50140941f);
+  } else {
+    w = sqrtf(w) - 3.0f;
+    p = -0.000200214257f;
+    p = __fmaf_rn(p, w, 0.000100950558f);
+    p = __fmaf_rn(p, w, 0.00134934322f);
+    p = __fmaf_rn(p, w, -0.00367342844f);
+    p = __fmaf_rn(p, w, 0.00573950773f);
+    p = __fmaf_rn(p, w, -0.0076224613f);
+    p = __fmaf_rn(p, w, 0.00943887047f);
+    p = __fmaf_rn(p, w, 1.00167406f);
+    p = __fmaf_rn(p, w, 2.83297682f);
+  }
   return fabsf(x) == 1.0f ? x * INFINITY : p * x;
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-threefry_kernel(const int* __restrict__ keys, void* __restrict__ out, int n,
-                int mode, float lo, float span, float scale) {
+threefry_kernel(const int* __restrict__ keys, uint32_t* __restrict__ out,
+                int n, float lo, float span, float scale) {
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t bits = threefry_word((uint32_t)keys[2 * b],
-                                      (uint32_t)keys[2 * b + 1], 0u,
-                                      (uint32_t)i);
-  const size_t e = (size_t)b * n + i;
-  if (mode == 0) {
-    ((int*)out)[e] = (int)bits;
+  // unsigned: the last block's counters may pass 2^31 (n < 2^31)
+  const uint32_t i0 = (blockIdx.x * kThreads + threadIdx.x) * kWords;
+  if (i0 >= (uint32_t)n) return;
+  uint32_t v[kWords];
+  threefry_words((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1], i0, v);
+  if (MODE != 0) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      float u = fmaxf(lo, __fmaf_rn(unit_float(v[j]), span, lo));
+      if (MODE == 2) u = scale * erf_inv(u);
+      v[j] = __float_as_uint(u);
+    }
+  }
+  const size_t e = (size_t)b * n + i0;
+  if (i0 + kWords <= (uint32_t)n && (e & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < kWords; j += 4)
+      *reinterpret_cast<uint4*>(out + e + j) =
+          make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
     return;
   }
-  const float u = fmaxf(lo, __fmaf_rn(unit_float(bits), span, lo));
-  if (mode == 1) {
-    ((float*)out)[e] = u;
-    return;
-  }
-  ((float*)out)[e] = scale * erf_inv(u);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    if (i0 + j < (uint32_t)n) out[e + j] = v[j];
 }
 
 }  // namespace
@@ -115,9 +169,17 @@ extern "C" {
 // For mode 2, lo and span must be nextafter(-1, 0) and its f32 span (2).
 int threefry_draw(const void* keys, void* out, int k, int n, int mode,
                   float lo, float span, float scale, void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, k);
-  threefry_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)keys, out, n, mode, lo, span, scale);
+  const int per_block = kThreads * kWords;
+  const dim3 grid((n - 1) / per_block + 1, k);   // n >= 1
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int* kw = (const int*)keys;
+  uint32_t* o = (uint32_t*)out;
+  if (mode == 0)
+    threefry_kernel<0><<<grid, kThreads, 0, s>>>(kw, o, n, lo, span, scale);
+  else if (mode == 1)
+    threefry_kernel<1><<<grid, kThreads, 0, s>>>(kw, o, n, lo, span, scale);
+  else
+    threefry_kernel<2><<<grid, kThreads, 0, s>>>(kw, o, n, lo, span, scale);
   return (int)cudaGetLastError();
 }
 
