@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      100, each timed; mix noise and mix + bilateral on
      16 images of 600x1000 whose explicit branches cover all 13 kinds
      (levels from the var_all table; quant palettes and bloom params from
-     the port's prologue), bit-exact for original, sap, shader, quant,
+     the port's prologue; the poisson image dark in its left half, so
+     both of its samplers run), bit-exact for original, sap, shader, quant,
      bloom, periodic and brownian, and within a mod-256 distance of 1 on
      <= 1e-3 of the elements for the kinds that go through log/exp/cos
      (gaussian's [0, 1] floats within 1e-6); mix + bilateral also timed
@@ -639,8 +640,12 @@ def check_mix_kernels(dev) -> list:
     """Kernels 6-8 at full width against their plain versions."""
     rng = np.random.RandomState(5)
     n = len(MIX_ENTRIES)
-    raw = torch.from_numpy(rng.randint(0, 256, (n, H, W, 3)).astype(
-        np.uint8)).to(dev)
+    raw = rng.randint(0, 256, (n, H, W, 3)).astype(np.uint8)
+    # the poisson image dark in its left half: lam < 10 there, so the
+    # inverse CDF runs beside PTRS in one warp at the band's edge
+    poisson = [k for k, _ in MIX_ENTRIES].index(int(Kind.POISSON))
+    raw[poisson, :, :W // 2] //= 32
+    raw = torch.from_numpy(raw).to(dev)
     keys = prng.split(prng.PRNGKey(5), n)
     kinds, *args = fixed_prologue(keys, raw, MIX_ENTRIES)
     rows = []

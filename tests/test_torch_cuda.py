@@ -55,6 +55,58 @@ def test_fused_kernels_match_plain(dev, shape, dtype, double):
         assert (diff.amax(-1) > 0).float().mean() <= 1e-3
 
 
+GAUSS_EDGE_SHAPES = [(1, 2, 2), (1, 2, 7), (2, 3, 5), (8, 37, 101),
+                     (1, 130, 333), (1, 260, 100), (2, 601, 999)]
+
+
+def _gauss_forms(shape):
+    """Kernel 2's inputs by route: (images, var) with u8 and f32 values
+    (the integer route, with and without noise) and f32 values that are
+    not integers, of both signs from 1e-2 to 1e9, NaN and inf (the float
+    route)."""
+    rng = np.random.RandomState(sum(shape))
+    im = rng.randint(0, 256, shape + (3,)).astype(np.float32)
+    frac = im + rng.uniform(-0.5, 0.5, im.shape).astype(np.float32)
+    wide = (rng.choice([-1, 1], im.shape)
+            * 10.0 ** rng.uniform(-2, 9, im.shape)).astype(np.float32)
+    wide.reshape(-1)[rng.randint(0, wide.size, 3)] = [np.nan, np.inf,
+                                                      -np.inf]
+    u8 = torch.from_numpy(im).to(torch.uint8)
+    return {'u8 + noise': (u8, 0.1), 'u8': (u8, 0.0),
+            'f32 + noise': (torch.from_numpy(im), 0.1),
+            'f32 non-integers + noise': (torch.from_numpy(frac), 0.1),
+            'f32 non-integers': (torch.from_numpy(frac), 0.0),
+            'f32 wide range': (torch.from_numpy(wide), 0.0)}
+
+
+@pytest.mark.parametrize('shape', GAUSS_EDGE_SHAPES)
+@pytest.mark.parametrize('double', [True, False])
+def test_gauss_blur_kernel_edges_match_plain(dev, shape, double):
+    """Kernel 2 at H = 2 and W = 2, odd widths (rows not aligned), heights
+    off its row segments (260 rows walk in segments of 8, the last one
+    partial), B = 1 and 8, both routes, one and two blurs: without noise
+    bit for bit (NaN where NaN), with noise within the bound of
+    test_fused_kernels_match_plain."""
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(shape[1])
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, shape[0])
+                             .astype(np.int32))
+    for form, (im, var) in _gauss_forms(shape).items():
+        want = fk.fused_gaussian_blur(im, seeds, var, double)
+        got = fk.fused_gaussian_blur(im.to(dev), seeds.to(dev), var,
+                                     double).cpu()
+        assert got.dtype == im.dtype, form
+        if var == 0.0:
+            if im.dtype == torch.uint8:
+                assert torch.equal(got, want), form
+            else:
+                _same_bits(got, want)
+            continue
+        diff = (got.float() - want.float()).abs()
+        assert diff.max() <= 1, form
+        assert (diff.amax(-1) > 0).float().mean() <= 1e-3, form
+
+
 @pytest.mark.parametrize('n', [512, 1024, 6144])
 def test_suppression_masks_match_plain(dev, n):
     from tpudenoise_torch.ops import nms
@@ -220,6 +272,67 @@ def test_mix_kernels_match_plain(dev, shape):
         got = fn(im, *args, kinds)
         torch.cuda.synchronize()
         _check_mix(got, plain(im, *args, kinds), ALL_KINDS)
+
+
+def _sampler_batch(dev, h, w, case):
+    """Two poisson images dark in their left half (lam < 10 there: both
+    samplers in the warps at the band's edge), two with four distinct
+    values (vals 4: every lam below 4), or two gamma images."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.mix_prologue import fixed_prologue
+    rng = np.random.RandomState(h + w + len(case))
+    im = rng.randint(0, 256, (2, h, w, 3)).astype(np.uint8)
+    entries = [(2, 0.0)] * 2
+    if case == 'poisson dark half':
+        im[:, :, :w // 2] //= 32
+    elif case == 'poisson vals 4':
+        im = rng.choice(np.asarray([0, 90, 170, 255], np.uint8), im.shape)
+    else:
+        entries = [(9, 0.2), (9, 1.0)]
+    im = torch.from_numpy(im)
+    kinds, *args = fixed_prologue(prng.split(prng.PRNGKey(h), 2), im,
+                                  entries)
+    return im.to(dev), kinds, [a.to(dev) for a in args], entries
+
+
+@pytest.mark.parametrize('shape', [(24, 40), (37, 71), (75, 290)])
+@pytest.mark.parametrize('case', ['poisson dark half', 'poisson vals 4',
+                                  'gamma'])
+def test_mix_samplers_match_plain(dev, shape, case):
+    """Kernels 6 and 7 on the samplers' branches (kernel 6 walks poisson
+    and gamma elements a round at a time), with H*W a multiple of 4 (whole
+    words) and not (37 x 71), within the transcendental kinds' bound."""
+    from tpudenoise_torch.noise import mix_kernels as mk
+    im, kinds, args, entries = _sampler_batch(dev, *shape, case)
+    for fn, plain in ((mk.fused_mix_noise, mk.fused_mix_noise_plain),
+                      (mk.fused_mix_bilateral, mk.fused_mix_bilateral_plain)):
+        got = fn(im, *args, kinds)
+        torch.cuda.synchronize()
+        _check_mix(got, plain(im, *args, kinds), entries)
+
+
+def test_gauss_and_mix_wrappers_do_not_synchronize(dev):
+    """Second calls of kernel 2's wrapper (u8 with noise, f32 without) and
+    of kernels 6-7's (poisson, gamma and every other kind) under sync debug
+    mode 'error' (the first calls build the kernels)."""
+    from tpudenoise_torch.noise import fused_kernels as fk
+    from tpudenoise_torch.noise import mix_kernels as mk
+    rng = np.random.RandomState(8)
+    im = torch.from_numpy(rng.randint(0, 256, (2, 37, 71, 3)).astype(
+        np.uint8)).to(dev)
+    seeds = torch.tensor([5, -7], dtype=torch.int32, device=dev)
+    mix, kinds, args = _mix_batch(dev, 24, 40, ALL_KINDS, 3)
+    for strict in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error' if strict else 'default')
+        try:
+            fk.fused_gaussian_blur(im, seeds, 0.1, True)
+            fk.fused_gaussian_blur(im.to(torch.float32), seeds, 0.0, False)
+            mk.fused_mix_noise(mix, *args, kinds)
+            mk.fused_mix_bilateral(mix, *args, kinds)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
 
 
 def test_brownian_long_rows_bitexact(dev):

@@ -59,6 +59,7 @@ def test_new_modules_are_walked():
     assert {'tpudenoise_torch.models.backbones.resnet',
             'tpudenoise_torch.benchmarks.profile_sap_breakdown',
             'tpudenoise_torch.benchmarks.profile_fused',
+            'tpudenoise_torch.benchmarks.sass_counts',
             'tpudenoise_torch.data.voc_like',
             'tpudenoise_torch.data.cache_pixels',
             'tpudenoise_torch.data.synthetic',

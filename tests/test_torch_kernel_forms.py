@@ -1,0 +1,351 @@
+"""The identities that the CUDA forms of kernel 2 (gaussian + blur,
+`csrc/fused_noise.cu`) and kernel 6 (mixed noise, `csrc/mix_noise.cu`)
+rest on, checked on the CPU in the kernels' operation order.
+
+* Kernel 2's integer route: on integers in [0, 255] the reference's float
+  blur equals s = a + 2b + c per column and (s_L + 2 s_V + s_R + 8) >> 4
+  (every vertical tap; the horizontal step and its rounding on 10^7
+  random column sums, the edges 0 and 1020 and every tie at x.5).
+* Kernel 2's walk: a numpy model of the kernel's loop (a lane a thread,
+  windows of `threads` lanes, segments of rows walked 8 rows a step, rows
+  -1 and h of the first pass taken in reversed order on the float route)
+  equals the plain version bit for bit on both routes.
+* Kernel 6's samplers: torch models of the early-exit forms (the inverse
+  CDF leaves once u <= cdf, PTRS stops at its first accepted round and
+  draws the fallback only where none accepted, gamma stops at its first
+  accepted round), each computing only what the kernel computes, equal
+  bit for bit to the plain version's full loops over ~10^6 hashed
+  elements a kind, lam around 10 and images with few distinct values
+  among them.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from tpudenoise_torch.noise import fused_kernels as fk
+from tpudenoise_torch.noise import mix_kernels as mk
+from tpudenoise_torch.noise.generators import wrap_cast_u8
+
+F = np.float32
+
+
+# ------------------------------------------------- kernel 2: the blur ----
+
+def _vtap_f(a, b, c):
+    return (F(0.25) * a + F(0.5) * b) + F(0.25) * c
+
+
+def _htap_f(l, v, r):
+    return np.floor(((F(0.25) * l + F(0.5) * v) + F(0.25) * r) + F(0.5))
+
+
+def test_vertical_tap_is_exact_on_u8_values():
+    """(0.25a + 0.5b) + 0.25c in f32 is (a + 2b + c) / 4 for every a, b, c
+    in [0, 255]."""
+    b, c = np.meshgrid(np.arange(256, dtype=F), np.arange(256, dtype=F),
+                       indexing='ij')
+    s_bc = 2 * b.astype(np.int64) + c.astype(np.int64)
+    for a in range(256):
+        got = _vtap_f(F(a), b, c)
+        assert got.dtype == F
+        np.testing.assert_array_equal(got * F(4), (a + s_bc).astype(F))
+
+
+def _column_sums(rng, n):
+    s = rng.randint(0, 1021, (3, n))
+    edges = np.array([[0, 0, 0], [1020, 1020, 1020], [0, 1020, 0],
+                      [1020, 0, 1020], [1, 0, 0], [0, 0, 1]]).T
+    # ties: totals at 16k + 8, whose float form lands on x.5 exactly
+    tl, tv = rng.randint(0, 1021, (2, n // 4))
+    tr = 16 * rng.randint(0, 256, n // 4) + 8 - tl - 2 * tv
+    ok = (tr >= 0) & (tr <= 1020)
+    ties = np.stack([tl[ok], tv[ok], tr[ok]])
+    return np.concatenate([s, edges, ties], 1)
+
+
+def test_horizontal_tap_and_round_are_exact():
+    """floor(((0.25 L + 0.5 V) + 0.25 R) + 0.5) on vertical taps s/4
+    equals (s_L + 2 s_V + s_R + 8) >> 4, ties at x.5 rounding up."""
+    rng = np.random.RandomState(0)
+    sl, sv, sr = _column_sums(rng, 10_000_000)
+    assert ((sl + 2 * sv + sr) % 16 == 8).sum() > 1_000_000
+    got = _htap_f(sl.astype(F) / F(4), sv.astype(F) / F(4),
+                  sr.astype(F) / F(4))
+    want = (sl + 2 * sv + sr + 8) >> 4
+    assert want.max() == 255 and want.min() == 0
+    np.testing.assert_array_equal(got, want.astype(F))
+
+
+def _reflect_row(y, h):
+    y = -y if y < 0 else y
+    y = 2 * (h - 1) - y if y > h - 1 else y
+    return -y if y < 0 else y
+
+
+BATCH = 8   # rows a step (fused_noise.cu kBatch)
+
+
+def _walk(x, threads, seg_rows, double, exact):
+    """Kernel 2's loop over one raster x (h, w3) of noisy values (int64 on
+    the integer route, float32 on the float one), vectorised over the
+    threads of a block."""
+    h, w3 = x.shape
+    vtap = (lambda a, b, c: a + 2 * b + c) if exact else _vtap_f
+    htap = ((lambda l, v, r: (l + 2 * v + r + 8) >> 4) if exact
+            else _htap_f)
+    out = np.full((h, w3), -1, x.dtype)
+    t = np.arange(threads)
+    out_w = threads - 12
+    for c0 in range(0, w3, out_w):
+        lane = c0 - 6 + t
+        live = (lane >= 0) & (lane < w3)
+        mid = live & (t >= 3) & (t < threads - 3)
+        outl = live & (t >= 6) & (t < threads - 6)
+        tl = np.where(~mid, t, np.where(lane >= 3, t - 3, t + 3))
+        tr = np.where(~mid, t, np.where(lane < w3 - 3, t + 3, tl))
+        for r0 in range(0, h, seg_rows):
+            r1 = min(r0 + seg_rows, h)
+            first, last = r0 - (2 if double else 1), r1 + (1 if double else 0)
+            n0 = n1 = m0 = m1 = np.zeros(threads, x.dtype)
+            for j0 in range(first, last + 1, BATCH):
+                tap1 = []
+                for k in range(BATCH):
+                    j = j0 + k
+                    n = np.zeros(threads, x.dtype)
+                    if j <= last:
+                        n = np.where(live, x[_reflect_row(j, h),
+                                             np.clip(lane, 0, w3 - 1)], 0)
+                    rev = not exact and j - 1 in (-1, h)
+                    tap1.append(vtap(n, n1, n0) if rev else vtap(n0, n1, n))
+                    n0, n1 = n1, n
+                tap2 = []
+                for k in range(BATCH):
+                    m = htap(tap1[k][tl], tap1[k], tap1[k][tr])
+                    o = j0 + k - 1
+                    if double:
+                        tap2.append(vtap(m0, m1, m))
+                        m0, m1 = m1, m
+                    elif r0 <= o < r1:
+                        out[o, lane[outl]] = m[outl]
+                for k, tap in enumerate(tap2):
+                    o = j0 + k - 2
+                    if r0 <= o < r1:
+                        out[o, lane[outl]] = htap(tap[tl], tap, tap[tr])[outl]
+    return out
+
+
+WALK_SHAPES = [(2, 2), (2, 7), (3, 5), (13, 11), (37, 29)]
+
+
+@pytest.mark.parametrize('route', ['u8 + noise', 'u8', 'f32 non-integers',
+                                   'f32 wide range'])
+@pytest.mark.parametrize('double', [True, False])
+def test_blur_walk_matches_plain(route, double):
+    """The walk (strips of 4 and 12 output lanes, segments of 8 rows and
+    of the whole height) equals fused_gaussian_blur_plain bit for bit: the
+    integer route on the noisy u8 values, the float route on f32 values
+    that are not integers, and on values from 1e-2 to 1e9 of both signs,
+    whose first-pass rows -1 and h take other bits in the other tap
+    order."""
+    for h, w in WALK_SHAPES:
+        rng = np.random.RandomState(h * w)
+        im = rng.randint(0, 256, (2, h, w, 3)).astype(F)
+        seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, 2)
+                                 .astype(np.int32))
+        var = 0.1 if route == 'u8 + noise' else 0.0
+        x = torch.from_numpy(im.reshape(2, h, 3 * w))
+        if route == 'f32 non-integers':
+            im = im + rng.uniform(-0.5, 0.5, im.shape).astype(F)
+            x = torch.from_numpy(im.reshape(2, h, 3 * w))
+        elif route == 'f32 wide range':   # tap order shows in the output
+            im = (rng.choice([-1, 1], im.shape)
+                  * 10.0 ** rng.uniform(-2, 9, im.shape)).astype(F)
+            x = torch.from_numpy(im.reshape(2, h, 3 * w))
+        elif var:
+            iy, ix, seed = fk._coords(h, 3 * w, seeds)
+            z = fk._gauss_noise(iy, ix, seed, torch.full(
+                (2, 1, 1), float(np.sqrt(var)), dtype=torch.float32))
+            x = torch.trunc(torch.clamp(x * fk._INV255 + z, 0.0, 1.0) * 255.0)
+        images = torch.from_numpy(im)
+        exact = not route.startswith('f32')
+        if exact:
+            images = images.to(torch.uint8)
+        want = fk.fused_gaussian_blur_plain(images, seeds, var, double)
+        want = want.reshape(2, h, 3 * w).numpy().astype(F)
+        vals = x.numpy().astype(np.int64 if exact else F)
+        for threads in (16, 24):
+            for seg_rows in (8, h):
+                for i in range(2):
+                    got = _walk(vals[i], threads, seg_rows, double, exact)
+                    np.testing.assert_array_equal(
+                        got.astype(F), want[i],
+                        err_msg=f'{(h, w)} threads {threads} rows {seg_rows}')
+
+
+# ----------------------------------------------- kernel 6: the samplers --
+
+def _image(rng, h, w, values, level=0.0):
+    """An mk._Image of u8 values drawn from `values`, vals as the
+    prologue sets it (2^ceil(log2(distinct values)))."""
+    x = rng.choice(np.asarray(values), (h, w, 3)).astype(F)
+    vals = float(2.0 ** np.ceil(np.log2(len(np.unique(x)))))
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, 2)
+                             .astype(np.int32))
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    return mk._Image(torch.from_numpy(x), f32(level), f32(vals), seeds,
+                     torch.zeros(60), torch.zeros(48, 8))
+
+
+def _draws(g, ctr):
+    def u01(salt):
+        return mk.u01_bits(mk.hash_ctr(ctr, salt, g.s0, g.s1))
+
+    def normal(salt):
+        u1, u2 = u01(salt), u01(salt + 1)
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(mk._TWO_PI * u2)
+    return u01, normal
+
+
+def _cdf_k(u, lam, early):
+    """The inverse CDF's k: the last n with u > cdf(n - 1) over 33 steps
+    (the plain version's loop), or with early=True stopping each element
+    at its first step with u <= cdf where lam >= 0 (poisson_small)."""
+    lam_s = torch.clamp(lam, max=10.0)
+    rising = lam_s >= 0.0
+    prob = torch.exp(-lam_s)
+    cdf = prob
+    k = torch.zeros_like(lam_s)
+    live = torch.ones_like(rising)
+    for n in range(1, 34):
+        up = u > cdf
+        k = torch.where(live & up, float(n), k)
+        if early:
+            live = live & (up | ~rising)
+        prob = torch.where(live, prob * lam_s * mk._f32(1.0 / n), prob)
+        cdf = torch.where(live, cdf + prob, cdf)
+    return k
+
+
+def _poisson_early(g):
+    """poisson_small / ptrs_round / poisson_fallback as the kernel runs
+    them: each element only the sampler its lam selects, the CDF walk up
+    to its deciding step, PTRS up to the first accepted round, the
+    fallback only where no round accepted."""
+    f32 = mk._f32
+    lam = (g.x01 * g.vals).reshape(-1)
+    ctr = g.ctr.reshape(-1)
+    k = torch.full_like(lam, float('nan'))
+
+    idx = torch.nonzero(lam < 10.0).squeeze(1)       # the inverse CDF
+    u01, _ = _draws(g, ctr[idx])
+    k[idx] = _cdf_k(u01(1), lam[idx], early=True)
+
+    idx = torch.nonzero(~(lam < 10.0)).squeeze(1)    # PTRS
+    lam_b = torch.clamp(lam[idx], min=10.0)
+    b = f32(0.931) + f32(2.53) * torch.sqrt(lam_b)
+    a = f32(-0.059) + f32(0.02483) * b
+    inv_alpha = f32(1.1239) + f32(1.1328) / (b - f32(3.4))
+    v_r = f32(0.9277) - f32(3.6224) / (b - 2.0)
+    log_lam = torch.log(lam_b)
+    pend = torch.arange(len(idx))
+    for r in range(4):
+        w = mk.hash_ctr(ctr[idx[pend]], 16 + r, g.s0, g.s1)
+        uu = ((w >> 16).to(torch.float32) + 0.5) * f32(2.0 ** -16) - 0.5
+        vv = ((w & 0xFFFF).to(torch.float32) + 0.5) * f32(2.0 ** -16)
+        us = 0.5 - uu.abs()
+        ap, bp, lp = a[pend], b[pend], lam_b[pend]
+        cand = torch.floor((2.0 * ap / us + bp) * uu + lp + f32(0.43))
+        acc = (us >= f32(0.07)) & (vv <= v_r[pend])
+        slow = torch.nonzero(~acc & (cand >= 0.0) & (
+            (us >= f32(0.013)) | (vv <= us))).squeeze(1)
+        s_us, s_vv, s_c = us[slow], vv[slow], cand[slow]
+        lhs = torch.log(s_vv * inv_alpha[pend][slow]
+                        / (ap[slow] / (s_us * s_us) + bp[slow]))
+        rhs = (-lp[slow] + s_c * log_lam[pend][slow]
+               - mk._stirling_lgamma(s_c + 1.0))
+        acc[slow] = lhs <= rhs
+        k[idx[pend[acc]]] = cand[acc]
+        pend = pend[~acc]
+    _, normal = _draws(g, ctr[idx[pend]])
+    lp = lam_b[pend]
+    k[idx[pend]] = torch.clamp(torch.round(lp + torch.sqrt(lp) * normal(8)),
+                               min=0.0)
+    out = wrap_cast_u8(255.0 * torch.clamp(k / g.vals, 0.0, 1.0))
+    return out.reshape(g.x.shape), len(pend)
+
+
+def _gamma_early(g):
+    """gamma_round as the kernel runs it: each element up to its first
+    accepted round, `last` from the rounds that ran."""
+    d, c = mk._GAMMA_D, mk._GAMMA_C
+    ctr = g.ctr.reshape(-1)
+    last = torch.full(ctr.shape, d, dtype=torch.float32)
+    pend = torch.arange(len(ctr))
+    for r in range(4):
+        u01, normal = _draws(g, ctr[pend])
+        x = normal(32 + 3 * r)
+        u = u01(34 + 3 * r)
+        t = 1.0 + c * x
+        v = t * (t * t)
+        pos = v > 0.0
+        vs = torch.where(pos, v, 1.0)
+        acc = pos & (torch.log(u) < 0.5 * x * x
+                     + d * (1.0 - vs + torch.log(vs)))
+        last[pend[pos]] = (d * vs)[pos]
+        pend = pend[~acc]
+    gam = last.reshape(g.x.shape)
+    return wrap_cast_u8(255.0 * (g.x01 + gam * g.level)), len(pend)
+
+
+POISSON_IMAGES = {
+    'u8 values': range(256),                     # vals 256: ~4% below 10
+    'lam around 10': range(0, 21),               # vals set to 256 below
+    'dark band': list(range(0, 10)) * 20 + list(range(256)),
+    'vals 4': (0, 80, 160, 255),                 # every lam below 4
+    'vals 16': range(0, 256, 16),                # lam in [0, 15]
+}
+
+
+@pytest.mark.parametrize('name', sorted(POISSON_IMAGES))
+def test_poisson_early_exit_matches_full_loops(name):
+    """~2.5e5 elements an image, 1.25e6 in all."""
+    g = _image(np.random.RandomState(len(name)), 250, 333,
+               POISSON_IMAGES[name])
+    if name == 'lam around 10':   # vals 256 with values around 10
+        g.vals = torch.tensor(256.0)
+    got, _ = _poisson_early(g)
+    lam = g.x01 * g.vals
+    print(f'{name}: vals {float(g.vals)}, lam < 10 on '
+          f'{float((lam < 10).float().mean()):.3f}')
+    assert torch.equal(got, mk._poisson(g))
+
+
+def test_cdf_walk_stops_only_where_cdf_rises():
+    """k of the early-exit walk equals the full walk's for lam in [0, 10)
+    (cdf never falls) and for lam < 0 (no prologue gives it: vals >= 1),
+    where prob changes sign, cdf can fall below u again, and the walk
+    runs every step; the output map clips k / vals < 0 to 0, so only k
+    shows it."""
+    rng = np.random.RandomState(4)
+    lam = np.concatenate([rng.uniform(0, 10, 200_000),
+                          np.linspace(9.9, 10, 1000, dtype=F), [0.0, -0.0],
+                          -rng.uniform(0, 12, 50_000)]).astype(F)
+    u = mk.u01_bits(torch.from_numpy(rng.randint(0, 2**32, lam.size,
+                                                 dtype=np.int64)))
+    lam = torch.from_numpy(lam)
+    full = _cdf_k(u, lam, early=False)
+    assert (full[lam < 0] > 1).any()
+    assert torch.equal(_cdf_k(u, lam, early=True), full)
+
+
+@pytest.mark.parametrize('level', [0.2, 1.0])
+def test_gamma_early_exit_matches_full_loops(level):
+    """5e5 elements a level, 10^6 in all; some elements reach the fourth
+    round."""
+    g = _image(np.random.RandomState(int(level * 10)), 400, 417, range(256),
+               level)
+    got, left = _gamma_early(g)
+    assert torch.equal(got, mk._gamma(g))

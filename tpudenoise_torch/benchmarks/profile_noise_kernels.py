@@ -1,21 +1,38 @@
-"""Time the threefry draw kernel and the bloom kernel (kernel 8) through
-the port's wrappers, at the main paths' shapes, in milliseconds by CUDA
-events (host time between the launches included) and by torch.profiler
-device time (the kernels alone).
+"""Time the threefry draw kernel, the bloom kernel (kernel 8), kernel 2
+(gaussian + blur) and kernels 6 and 7 (mixed noise, and mixed noise +
+bilateral) through the port's wrappers, at the main paths' shapes, in
+milliseconds by CUDA events (host time between the launches included) and
+by torch.profiler device time (the kernels alone).
 
     python3 -m tpudenoise_torch.benchmarks.profile_noise_kernels
 
 Cases:
+  * `noise/bloom.py:bloom_batched` on (8, 600, 1000, 3) u8 and f32
+    images with `bloom_params` params, and the bloom kind of the mix
+    kernels 6 and 7 (`bloom_steps.cuh` is shared): 8 images that all draw
+    bloom;
+  * `noise/fused_kernels.py:fused_gaussian_blur` on (8, 600, 1000, 3)
+    images with a noise std per image (the three levels, as
+    chip_smoke.py's check draws them): u8 with noise, f32 with noise, f32
+    without noise, each with one and with two blurs;
+  * `noise/mix_kernels.py:fused_mix_noise` on 8 images of 600x1000 of
+    each of the 13 kinds, at the kind's first level in
+    `profile_bilateral.MIX_ENTRIES` (chip_smoke.py's per-kind inputs), and
+    on 8 poisson images dark in their left half (both of poisson's
+    samplers in one warp); `fused_mix_bilateral` on the 8 images of
+    poisson, gamma, gaussian and original;
   * `core/prng.py:threefry_draw` in its three modes for 8 keys x 1.8M
     words (one (8, 600, 1000, 3) field: the speckle draw is the normal
     one) and the uniform draw for 64 keys x 1.8M (poisson's PTRS rounds:
     8 images x 4 rounds x 2 fields);
   * the summed threefry device time of one poisson noise stage on 8
-    images of 600x1000 (its three draws: 8, 8 and 64 keys);
-  * `noise/bloom.py:bloom_batched` on (8, 600, 1000, 3) u8 and f32
-    images with `bloom_params` params;
-  * the bloom kind of the mix kernels 6 and 7 (`bloom_steps.cuh` is
-    shared): 8 images that all draw bloom.
+    images of 600x1000 (its three draws: 8, 8 and 64 keys), last: a trace
+    after its long ones has come back short of launches on the card;
+  * parity: no timing, one hash of every output of kernels 2, 6 and 7 on
+    small and odd shapes (odd widths, H = 2 and W = 2, B = 1 and 8; u8 and
+    f32 with and without noise, non-integer and wide-range f32 values, one
+    and two blurs; all 13 kinds, a dark-band poisson image and one with
+    four distinct values).
 Each case also prints a hash of the output, so that two versions of the
 port, run one after the other on the same card, can be shown to give the
 same bits.  The script uses only entry points that the port has had since
@@ -38,9 +55,12 @@ from tpudenoise_torch.benchmarks import profile_bilateral as pb
 from tpudenoise_torch.benchmarks.timing import card_line, device_ms, time_ms
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.noise import bloom as bl
+from tpudenoise_torch.noise import fused_kernels as fk
 from tpudenoise_torch.noise import mix_kernels as mk
 from tpudenoise_torch.noise.generators import bloom_params
+from tpudenoise_torch.noise.mix_prologue import fixed_prologue
 from tpudenoise_torch.noise.pipeline import make_pipeline
+from tpudenoise_torch.noise.spec import Kind
 
 B, H, W = 8, 600, 1000
 N = H * W * 3
@@ -48,6 +68,122 @@ PTRS_KEYS = 64          # poisson's PTRS draw: B images x 4 rounds x 2
 THREEFRY = ('threefry_kernel',)
 BLOOM = ('bloom_kernel',)
 BLOOM_KIND = 11         # Kind.BLOOM
+GAUSS = ('gauss_blur_kernel',)
+MIX = ('mix_noise_kernel', 'brownian_')
+MIX_BIL = ('mix_bilateral_kernel', 'brownian_')
+POISSON, GAMMA = 2, 9
+BILATERAL_KINDS = (POISSON, GAMMA, 1, 0)   # poisson, gamma, gaussian, original
+LEVELS = np.sqrt(np.asarray([0.1, 1.0, 1.5], np.float32))
+
+
+def sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def gauss_inputs(dev, shape, seed):
+    """(u8 images, f32 images, seeds, sigmas) for kernel 2."""
+    rng = np.random.RandomState(seed)
+    raw = rng.randint(0, 256, shape + (3,)).astype(np.uint8)
+    seeds = rng.randint(0, 2**31 - 1, shape[0]).astype(np.int32)
+    sig = LEVELS[rng.randint(0, 3, shape[0])]
+    u8 = torch.from_numpy(raw).to(dev)
+    return (u8, u8.to(torch.float32), torch.from_numpy(seeds).to(dev),
+            torch.from_numpy(sig).to(dev))
+
+
+def mix_case(dev, h, w, entries, seed, dark=False, values=None):
+    """(raw, kinds, args) for images i taking entries[i] = (kind, level);
+    dark: the left half of every image below 8 (lam < 10 for poisson);
+    values: the pixels drawn from these values only."""
+    rng = np.random.RandomState(seed)
+    raw = rng.randint(0, 256, (len(entries), h, w, 3)).astype(np.uint8)
+    if values is not None:
+        raw = rng.choice(np.asarray(values, np.uint8), raw.shape)
+    if dark:
+        raw[:, :, :w // 2] //= 32
+    raw = torch.from_numpy(raw).to(dev)
+    kinds, *args = fixed_prologue(prng.split(prng.PRNGKey(seed),
+                                             len(entries)), raw, entries)
+    return raw, kinds, args
+
+
+def gauss_mix_cases(dev) -> dict:
+    """{case: (fn, symbols, launches a call)} for kernels 2, 6 and 7."""
+    u8, f32, seeds, sig = gauss_inputs(dev, (B, H, W), 3)
+    cases = {}
+    for double in (True, False):
+        blurs = 'two blurs' if double else 'one blur'
+        cases[f'kernel 2 u8 + noise, {blurs}'] = (
+            lambda d=double: fk.fused_gaussian_blur(u8, seeds, 0.1, d,
+                                                    sigmas=sig), GAUSS, 1)
+        cases[f'kernel 2 f32 + noise, {blurs}'] = (
+            lambda d=double: fk.fused_gaussian_blur(f32, seeds, 0.1, d,
+                                                    sigmas=sig), GAUSS, 1)
+        cases[f'kernel 2 f32 no noise, {blurs}'] = (
+            lambda d=double: fk.fused_gaussian_blur(f32, seeds, 0.0, d),
+            GAUSS, 1)
+    per_kind = {kind: mix_case(dev, H, W, [(kind, level)] * B, 11 + kind)
+                for kind, level in pb.MIX_ENTRIES[:13]}
+    for kind, (raw, kk, args) in per_kind.items():
+        name = Kind(kind).name.lower()
+        cases[f'kernel 6, 8 {name} images'] = (
+            lambda raw=raw, kk=kk, args=args: mk.fused_mix_noise(
+                raw, *args, kk), MIX, 1)
+    raw, kk, args = mix_case(dev, H, W, [(POISSON, 0.0)] * B, 40, dark=True)
+    cases['kernel 6, 8 poisson images dark in their left half'] = (
+        lambda raw=raw, kk=kk, args=args: mk.fused_mix_noise(raw, *args, kk),
+        MIX, 1)
+    for kind in BILATERAL_KINDS:
+        raw, kk, args = per_kind[kind]
+        cases[f'kernel 7, 8 {Kind(kind).name.lower()} images'] = (
+            lambda raw=raw, kk=kk, args=args: mk.fused_mix_bilateral(
+                raw, *args, kk), MIX_BIL, 1)
+    return cases
+
+
+GAUSS_SHAPES = [(1, 2, 2), (1, 2, 7), (2, 3, 5), (3, 37, 29), (8, 37, 101),
+                (1, 130, 333), (2, 601, 999)]
+MIX_SHAPES = [(24, 40), (37, 71), (75, 290)]
+
+
+def parity(dev) -> dict:
+    """{case: hash} of kernels 2, 6 and 7 on small and odd shapes."""
+    out = {}
+    for shape in GAUSS_SHAPES:
+        u8, f32, seeds, sig = gauss_inputs(dev, shape, sum(shape))
+        rng = np.random.RandomState(shape[1])
+        frac = f32 + torch.from_numpy(rng.uniform(
+            -0.5, 0.5, f32.shape).astype(np.float32)).to(dev)
+        wide = torch.from_numpy((rng.choice([-1, 1], f32.shape) * 10.0 ** rng
+                                 .uniform(-2, 9, f32.shape)).astype(
+                                     np.float32)).to(dev)
+        for double in (True, False):
+            runs = {'u8 + noise': (u8, 0.1, sig), 'u8': (u8, 0.0, None),
+                    'u8 var 1.5': (u8, 1.5, None),
+                    'f32 + noise': (f32, 0.1, sig), 'f32': (f32, 0.0, None),
+                    'f32 non-integers': (frac, 0.0, None),
+                    'f32 wide range': (wide, 0.0, None),
+                    'f32 non-integers + noise': (frac, 0.1, sig)}
+            for name, (im, var, sg) in runs.items():
+                got = fk.fused_gaussian_blur(im, seeds, var, double,
+                                             sigmas=sg)
+                out[f'kernel 2 {shape} {name} double={double}'] = sha(got)
+    entries = list(pb.MIX_ENTRIES)
+    for h, w in MIX_SHAPES:
+        cases = {'all kinds': mix_case(dev, h, w, entries, h * w),
+                 'poisson dark half': mix_case(
+                     dev, h, w, [(POISSON, 0.0)] * 2, h + w, dark=True),
+                 'poisson vals 4': mix_case(
+                     dev, h, w, [(POISSON, 0.0)] * 2, h, values=(0, 90, 170,
+                                                                255)),
+                 'gamma': mix_case(dev, h, w, [(GAMMA, 0.2), (GAMMA, 1.0)],
+                                   w)}
+        for name, (raw, kk, args) in cases.items():
+            for kernel, fn in (('6', mk.fused_mix_noise),
+                               ('7', mk.fused_mix_bilateral)):
+                out[f'kernel {kernel} ({h}, {w}) {name}'] = sha(
+                    fn(raw, *args, kk))
+    return out
 
 
 def threefry_cases(dev) -> dict:
@@ -101,22 +237,27 @@ def bloom_cases(dev) -> dict:
 
 
 def profile(dev, iters: int = 20) -> dict:
-    """{case: {ms, device_ms, output_sha256}} for every case."""
+    """{'results': {case: {ms, device_ms, output_sha256}}, 'parity': {case:
+    hash}, 'parity_hash': hash of the parity hashes}"""
     out = {}
-    # the poisson stage's long traces last: a trace after one has come
-    # back short of launches on the card
     for case, (fn, symbols, per_call) in {**bloom_cases(dev),
+                                          **gauss_mix_cases(dev),
                                           **threefry_cases(dev),
                                           **poisson_case(dev)}.items():
-        sha = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+        digest = sha(fn())
         out[case] = t = dict(
             ms=time_ms(fn, iters),
             device_ms=device_ms(fn, iters, symbols, per_call=per_call),
-            output_sha256=sha)
+            output_sha256=digest)
         print(f'{case}: {t["ms"]:.4f} ms (CUDA events), {t["device_ms"]} ms '
               f'(profiler device time of {"/".join(symbols)}), output '
-              f'{sha}', flush=True)
-    return out
+              f'{digest}', flush=True)
+    par = parity(dev)
+    digest = hashlib.sha256(json.dumps(par, sort_keys=True).encode()
+                            ).hexdigest()[:16]
+    print(f'parity: {len(par)} outputs, hash of their hashes {digest}',
+          flush=True)
+    return {'results': out, 'parity': par, 'parity_hash': digest}
 
 
 def main() -> int:
@@ -125,7 +266,7 @@ def main() -> int:
         return 1
     card = card_line()
     print(f'card: {card}', flush=True)
-    print(json.dumps({'card': card, 'results': profile('cuda')}))
+    print(json.dumps({'card': card, **profile('cuda')}))
     print(card)
     return 0
 

@@ -59,6 +59,19 @@ def build(names) -> None:
         list(pool.map(library, names))
 
 
+def library_path(name: str) -> str:
+    """Where `csrc/<name>.cu` builds to: a directory keyed by the hash of
+    the source, the headers of csrc/ (a source may include them) and the
+    flags."""
+    src = osp.join(CSRC, name + '.cu')
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(osp.join(CSRC, '*.cuh'))):
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
+    return osp.join(BUILD_ROOT, f'{name}-{digest}', f'lib{name}.so')
+
+
 def library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load `csrc/<name>.cu`."""
     with _lock:
@@ -67,14 +80,8 @@ def library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = osp.join(CSRC, name + '.cu')
-        # the headers of csrc/ count too: a source may include them
-        h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-        for path in [src] + sorted(glob.glob(osp.join(CSRC, '*.cuh'))):
-            with open(path, 'rb') as f:
-                h.update(f.read())
-        digest = h.hexdigest()[:16]
-        out_dir = osp.join(BUILD_ROOT, f'{name}-{digest}')
-        so = osp.join(out_dir, f'lib{name}.so')
+        so = library_path(name)
+        out_dir = osp.dirname(so)
         if not osp.exists(so):
             os.makedirs(out_dir, exist_ok=True)
             t0 = time.perf_counter()
