@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      (thirteen kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
-     sap+median (8, 600, 1000, 3) u8 bit-exact; gaussian+blur same shape
+     sap+median (8, 600, 1000, 3) bit-exact on u8 and on f32 values that
+     are not integers, with two medians and with one; gaussian+blur same
+     shape
      within max |diff| <= 1 on <= 1e-3 of the pixels; packed NMS masks
      (kernel 3) word for word on 8 x 6144 sorted boxes and on the
      postprocess batch (160 x 320 with invalid rows); the greedy walk
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      on 8 images, u8 and f32, bit for bit, each timed; the standalone
      bilateral (8, 600, 1000, 3) f32 bit-exact on u8 values (its table
      form) and on [0, 1] floats (its per-tap expf form), each timed; the
-     per-image sap + median entry on the same shape bit-exact; the
+     per-image sap + median entry on the same shape bit-exact (integer
+     values and non-integers); the
      threefry fields for 8 keys x 1.8M elements: bits and uniforms
      bit-exact, normals within 2 ulp, and poisson's PTRS draw (64 keys x
      1.8M uniforms) bit-exact, each mode timed with its bound; the
@@ -327,15 +330,25 @@ def check_kernels(dev) -> list:
         np.int32)).to(dev)
     rows = []
 
-    # kernel 1: bit-exact
-    got = fk.fused_sap_median_batched(raw, seeds, 0.4, True)
-    want = fk.fused_sap_median_plain(raw, seeds, 0.4, True)
-    torch.cuda.synchronize()
-    err = (got.int() - want.int()).abs().max().item()
-    log(f'kernel sap_median: max |diff| {err} (bit-exact required)')
-    if err != 0:
-        raise AssertionError('sap_median kernel differs from its plain '
-                             'version')
+    # kernel 1: bit-exact on u8 (the packed route) and on f32 values that
+    # are not integers (the float route), with two medians and with one;
+    # the fractions from a stream of their own, so that the later checks'
+    # inputs stay as they were
+    frac = raw.to(torch.float32) + torch.from_numpy(np.random.RandomState(
+        4).uniform(-0.5, 0.5, (B, H, W, 3)).astype(np.float32)).to(dev)
+    err = 0.0
+    for what, im in (('u8', raw), ('f32 non-integers', frac)):
+        for double in (True, False):
+            got = fk.fused_sap_median_batched(im, seeds, 0.4, double)
+            want = fk.fused_sap_median_plain(im, seeds, 0.4, double)
+            torch.cuda.synchronize()
+            e = (got.double() - want.double()).abs().max().item()
+            log(f'kernel sap_median {what}, double={double}: max |diff| {e} '
+                f'(bit-exact required)')
+            if e != 0:
+                raise AssertionError(f'sap_median kernel differs from its '
+                                     f'plain version on {what}')
+            err = max(err, e)
     rows.append(dict(
         name='fused_sap_median_batched', route='cuda',
         source='tpudenoise_torch/csrc/fused_noise.cu',
@@ -411,17 +424,21 @@ def check_kernels(dev) -> list:
         post_bound_ms=mask_bound(post, masks['160 x 320'])['bound_ms']))
     rows.append(check_greedy(boxes, masks, post_valid))
 
-    # kernel 4: the per-image entry of kernel 1 (f32 I/O), bit-exact
+    # kernel 4: the per-image entry of kernel 1 (f32 I/O), bit-exact on
+    # integer values and on values that are not integers
     img = raw.to(torch.float32)
-    got = fk.fused_sap_median(img, seeds, 0.4, True)
-    torch.cuda.synchronize()
-    err = (got - fk.fused_sap_median_plain(img, seeds, 0.4, True)).abs(
-    ).max().item()
-    log(f'kernel sap_median (per image): max |diff| {err} (bit-exact '
-        f'required)')
-    if err != 0:
-        raise AssertionError('per-image sap_median differs from its plain '
-                             'version')
+    err = 0.0
+    for what, im in (('integers', img), ('non-integers', frac)):
+        got = fk.fused_sap_median(im, seeds, 0.4, True)
+        torch.cuda.synchronize()
+        e = (got - fk.fused_sap_median_plain(im, seeds, 0.4, True)).abs(
+        ).max().item()
+        log(f'kernel sap_median (per image) on {what}: max |diff| {e} '
+            f'(bit-exact required)')
+        if e != 0:
+            raise AssertionError(f'per-image sap_median differs from its '
+                                 f'plain version on {what}')
+        err = max(err, e)
     rows.append(dict(
         name='fused_sap_median', route='cuda',
         source='tpudenoise_torch/csrc/fused_noise.cu',

@@ -581,6 +581,63 @@ def test_sap_median_per_image_kernel_matches_plain(dev):
         im, seeds, 0.4, True), atol=0, rtol=0)
 
 
+# kernel 1's walk at its edges: h = 1, 2, 3, 9; last segments of one row
+# short of a whole one (17: 9 + 8) and of one row (57, 161: segments of 8
+# on the float route; 65: 11 rows, last 10, on the packed route), on a
+# 132-SM card; w = 1, 2; w3 = 759, just over one strip of 756 lanes;
+# B = 1 and 9
+SAP_EDGE_SHAPES = [(1, 1, 1), (9, 1, 7), (1, 2, 2), (2, 3, 1), (9, 9, 2),
+                   (1, 17, 40), (9, 65, 40), (1, 57, 253), (1, 161, 253),
+                   (2, 600, 253)]
+
+
+def _sap_forms(shape):
+    """Kernel 1's inputs by route: u8 (the packed route), and f32 integers,
+    non-integers and values of both signs from 1e-2 to 1e9 (the float
+    route)."""
+    rng = np.random.RandomState(sum(shape))
+    im = rng.randint(0, 256, shape + (3,)).astype(np.float32)
+    frac = im + rng.uniform(-0.5, 0.5, im.shape).astype(np.float32)
+    wide = (rng.choice([-1, 1], im.shape)
+            * 10.0 ** rng.uniform(-2, 9, im.shape)).astype(np.float32)
+    return {'u8': torch.from_numpy(im).to(torch.uint8),
+            'f32 integers': torch.from_numpy(im),
+            'f32 non-integers': torch.from_numpy(frac),
+            'f32 wide range': torch.from_numpy(wide)}
+
+
+@pytest.mark.parametrize('shape', SAP_EDGE_SHAPES)
+@pytest.mark.parametrize('double', [True, False])
+def test_sap_median_kernel_edges_match_plain(dev, shape, double):
+    """Kernels 1 and 4 bit for bit against fused_sap_median_plain at the
+    walk's edge shapes, one and two medians: the batched entry on every
+    form, the per-image entry on the f32 forms, and u8 images through the
+    float route (`sap_median_u8_float`, the packed route's yardstick)."""
+    from tpudenoise_torch import cuda_build
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(shape[1])
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, shape[0])
+                             .astype(np.int32))
+    b, h, w = shape
+    for form, im in _sap_forms(shape).items():
+        want = fk.fused_sap_median_plain(im, seeds, 0.4, double)
+        x, s = im.to(dev), seeds.to(dev)
+        got = {'batched': fk.fused_sap_median_batched(x, s, 0.4, double)}
+        if im.dtype == torch.float32:
+            got['per image'] = fk.fused_sap_median(x, s, 0.4, double)
+        else:
+            got['float route'] = torch.empty_like(x)
+            cuda_build.launch('fused_noise', 'sap_median_u8_float', x,
+                              got['float route'], s, b, h, 3 * w,
+                              fk._sap_threshold_i32(0.4), int(double))
+        for entry, out in got.items():
+            assert out.dtype == im.dtype, (form, entry)
+            if im.dtype == torch.uint8:
+                assert torch.equal(out.cpu(), want), (form, entry)
+            else:
+                _same_bits(out.cpu(), want)
+
+
 @pytest.mark.parametrize('noise', ['speckle_bilateral_var1.0', 'poisson',
                                    'gamma_var0.1', 'quant_var10',
                                    'uniform_mean_var0.6', 'brownian_var0.9'])

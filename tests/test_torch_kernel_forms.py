@@ -1,7 +1,14 @@
-"""The identities that the CUDA forms of kernel 2 (gaussian + blur,
-`csrc/fused_noise.cu`) and kernel 6 (mixed noise, `csrc/mix_noise.cu`)
-rest on, checked on the CPU in the kernels' operation order.
+"""The identities that the CUDA forms of kernels 1 and 2 (sap + median,
+gaussian + blur, `csrc/fused_noise.cu`) and kernel 6 (mixed noise,
+`csrc/mix_noise.cu`) rest on, checked on the CPU in the kernels'
+operation order.
 
+* Kernel 1's packed route: a lane at two rows in one 32-bit word (u16x2)
+  sorted by three-input per-half min/max, mid = a + b + c - lo - hi and
+  med3 by the same identity, over every u8 triple in one half with other
+  triples in the other; the merge of three sorted columns equals the
+  median of the nine values (packed and float forms; random, saturated
+  and all-equal sets); the row hash from a lane's fixed term is hash2d.
 * Kernel 2's integer route: on integers in [0, 255] the reference's float
   blur equals s = a + 2b + c per column and (s_L + 2 s_V + s_R + 8) >> 4
   (every vertical tap; the horizontal step and its rounding on 10^7
@@ -183,6 +190,158 @@ def test_blur_walk_matches_plain(route, double):
                     np.testing.assert_array_equal(
                         got.astype(F), want[i],
                         err_msg=f'{(h, w)} threads {threads} rows {seg_rows}')
+
+
+# ------------------------------------ kernel 1: sorted columns, packed --
+
+U32 = np.uint32
+
+
+def _pack(top, bot):
+    """A lane at two rows in one word, as PackedMedian::pack: row j in
+    bits 0-15, row j + 1 in bits 16-31."""
+    return (np.asarray(top, U32) | (np.asarray(bot, U32) << U32(16)))
+
+
+def _halves(w):
+    return w & U32(0xFFFF), w >> U32(16)
+
+
+def _per_half(fn, *ws):
+    """A DPX u16x2 operation: fn on each 16-bit half on its own."""
+    tops, bots = zip(*(_halves(w) for w in ws))
+    return _pack(fn(*tops), fn(*bots))
+
+
+def _vimin3(a, b, c):
+    return _per_half(lambda *v: np.minimum(np.minimum(v[0], v[1]), v[2]),
+                     a, b, c)
+
+
+def _vimax3(a, b, c):
+    return _per_half(lambda *v: np.maximum(np.maximum(v[0], v[1]), v[2]),
+                     a, b, c)
+
+
+def _sort3_packed(a, b, c):
+    """PackedMedian::sort3 in 32-bit wraparound arithmetic."""
+    lo, hi = _vimin3(a, b, c), _vimax3(a, b, c)
+    return lo, a + b + c - lo - hi, hi
+
+
+def _med3_packed(a, b, c):
+    return a + b + c - _vimax3(a, b, c) - _vimin3(a, b, c)
+
+
+def _merge_packed(cols):
+    (lo_l, mid_l, hi_l), (lo_c, mid_c, hi_c), (lo_r, mid_r, hi_r) = cols
+    return _med3_packed(_vimax3(lo_l, lo_c, lo_r),
+                        _med3_packed(mid_l, mid_c, mid_r),
+                        _vimin3(hi_l, hi_c, hi_r))
+
+
+def _sort3_f(a, b, c):
+    """sap::sort3 (sap_median.cuh) in its operation order."""
+    lo, hi = np.fmin(a, b), np.fmax(a, b)
+    m = np.fmin(hi, c)
+    return np.fmin(lo, m), np.fmax(lo, m), np.fmax(hi, c)
+
+
+def _med3_f(a, b, c):
+    return np.fmax(np.fmin(a, b), np.fmin(np.fmax(a, b), c))
+
+
+def _merge_f(cols):
+    """The merge of fused_noise.cu (median9's last step): max3, min3 and
+    med3 in median9's order."""
+    (lo_l, mid_l, hi_l), (lo_c, mid_c, hi_c), (lo_r, mid_r, hi_r) = cols
+    return _med3_f(np.fmax(np.fmax(lo_l, lo_c), lo_r),
+                   _med3_f(mid_l, mid_c, mid_r),
+                   np.fmin(np.fmin(hi_l, hi_c), hi_r))
+
+
+def test_packed_sort3_and_med3_are_exact_on_every_u8_triple():
+    """Over all 256^3 triples (a, b, c) in the rows-j halves, with other
+    triples in the rows-(j + 1) halves: vimin3/vimax3 give each half's
+    min and max, mid = a + b + c - lo - hi in 32-bit wraparound arithmetic
+    gives each half's median (nothing carries or borrows across the
+    halves), and med3 by the same identity equals the float med3 form of
+    sap::med3 on each half."""
+    b, c = np.meshgrid(np.arange(256, dtype=U32), np.arange(256, dtype=U32),
+                       indexing='ij')
+    b, c = b.ravel(), c.ravel()
+    for a in range(256):
+        a_ = np.full_like(b, a)
+        tops = (a_, b, c)
+        bots = (c, U32(255) - b, (a_ + b * U32(7)) % U32(256))
+        words = [_pack(t, u) for t, u in zip(tops, bots)]
+        lo, mid, hi = _sort3_packed(*words)
+        med = _med3_packed(*words)
+        for half, vals in ((0, tops), (1, bots)):
+            want = np.sort(np.stack(vals), 0)
+            for got, k in ((lo, 0), (mid, 1), (hi, 2)):
+                np.testing.assert_array_equal(_halves(got)[half], want[k])
+            np.testing.assert_array_equal(
+                _halves(med)[half],
+                _med3_f(*(v.astype(F) for v in vals)).astype(U32))
+
+
+def _nine(kind, rng):
+    """(n, 3, 3) sets of nine values: [row, column]."""
+    if kind == 'random':
+        return rng.randint(0, 256, (200_000, 3, 3))
+    if kind == 'saturated':   # every set of nine 0s and 255s
+        bits = (np.arange(512)[:, None] >> np.arange(9)) & 1
+        return (255 * bits).reshape(512, 3, 3)
+    return np.repeat(np.arange(256), 9).reshape(256, 3, 3)   # all equal
+
+
+@pytest.mark.parametrize('kind', ['random', 'saturated', 'all equal'])
+@pytest.mark.parametrize('route', ['packed', 'float'])
+def test_merge_of_sorted_columns_is_the_median_of_nine(kind, route):
+    """Each column sorted once (rows y-1, y, y+1), then the merge of the
+    three sorted columns (max of the los, med3 of the mids, min of the
+    his) equals the median of the nine values: the packed route on u8
+    values in both halves at once (the second half holds other sets), the
+    float route on the same values and on non-integers."""
+    rng = np.random.RandomState(len(kind))
+    sets = _nine(kind, rng)
+    want = np.sort(sets.reshape(len(sets), 9), 1)[:, 4]
+    if route == 'packed':
+        other = sets[rng.permutation(len(sets))][:, ::-1]
+        words = _pack(sets, other)
+        cols = [_sort3_packed(*words[:, :, x].T) for x in range(3)]
+        got = _merge_packed(cols)
+        np.testing.assert_array_equal(_halves(got)[0], want)
+        np.testing.assert_array_equal(
+            _halves(got)[1],
+            np.sort(other.reshape(len(sets), 9), 1)[:, 4])
+        return
+    for vals in (sets.astype(F),
+                 sets.astype(F) + rng.uniform(-0.5, 0.5, sets.shape)
+                 .astype(F)):
+        cols = [_sort3_f(*vals[:, :, x].T) for x in range(3)]
+        np.testing.assert_array_equal(
+            _merge_f(cols), np.sort(vals.reshape(len(vals), 9), 1)[:, 4])
+
+
+def test_row_hash_from_lane_term_is_hash2d():
+    """sap::hash2d_row(iy, hash2d_lane(ix, seed)) == hash2d(iy, ix, seed):
+    the lane and seed terms are taken once for a lane."""
+    rng = np.random.RandomState(1)
+    iy, ix, seed = (rng.randint(0, 2**32, 100_000, dtype=np.uint64)
+                    .astype(U32) for _ in range(3))
+    with np.errstate(over='ignore'):
+        h = (iy * U32(0x9E3779B9)) ^ ((ix * U32(0x85EBCA6B))
+                                      ^ (seed * U32(0xC2B2AE35)))
+        h ^= h >> U32(16)
+        h *= U32(0x7FEB352D)
+        h ^= h >> U32(15)
+        h *= U32(0x846CA68B)
+        h ^= h >> U32(16)
+    want = fk.hash2d(*(torch.from_numpy(v.astype(np.int64))
+                       for v in (iy, ix, seed)))
+    np.testing.assert_array_equal(h.astype(np.int64), want.numpy())
 
 
 # ----------------------------------------------- kernel 6: the samplers --

@@ -4,6 +4,8 @@
 //
 // Counterparts of tpudenoise/noise/pallas_kernels.py: _hash2d, _load_f32 /
 // _store_row_block, _med3 and the column-sort form of _median3_tile.
+// hash2d_lane / hash2d_row serve fused_noise.cu's row walk, which hashes
+// down one lane.
 
 #pragma once
 
@@ -15,6 +17,22 @@ namespace sap {
 __device__ __forceinline__ uint32_t hash2d(uint32_t iy, uint32_t ix,
                                            uint32_t seed) {
   uint32_t h = (iy * 0x9E3779B9u) ^ (ix * 0x85EBCA6Bu) ^ (seed * 0xC2B2AE35u);
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+// hash2d split for a walk down one lane: the lane and seed terms, fixed
+// for the lane, once; then each row's hash from them.
+// hash2d_row(iy, hash2d_lane(ix, seed)) == hash2d(iy, ix, seed).
+__device__ __forceinline__ uint32_t hash2d_lane(uint32_t ix, uint32_t seed) {
+  return (ix * 0x85EBCA6Bu) ^ (seed * 0xC2B2AE35u);
+}
+__device__ __forceinline__ uint32_t hash2d_row(uint32_t iy, uint32_t lane) {
+  uint32_t h = (iy * 0x9E3779B9u) ^ lane;
   h ^= h >> 16;
   h *= 0x7FEB352Du;
   h ^= h >> 15;
