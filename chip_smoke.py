@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
   2. build: nvcc builds the seven kernel sources of tpudenoise_torch/csrc
-     (thirteen kernels), one nvcc process each, all at once;
+     (fourteen kernels), one nvcc process each, all at once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
      sap+median (8, 600, 1000, 3) bit-exact on u8 and on f32 values that
@@ -139,6 +139,8 @@ SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
 LOOP_IMAGES, LOOP_NOISE = 16, 'sap_median_var0.4'
 # the res101 main path: bench_config6's model and noise
 RES_NOISES = ('sap_median_var0.4',)
+# the stage-cut kernels' symbols: the copy/noise kernel and the walk
+SAP_STAGES = ('sap_stages_',)
 # the profiling scripts' batch and the tile heights their rows are timed at
 PROFILE_B = 128
 PROFILE_TILES = {'sap_stages_f32': 56, 'sap_stages_u8': 120,
@@ -621,7 +623,7 @@ def check_sap_stages(dev) -> list:
                 ms=time_ms(lambda: run(big, big_seeds, stage), 20),
                 # read after the main paths: bind this stage's inputs now
                 device_ms=later(lambda run=run, big=big, stage=stage: run(
-                    big, big_seeds, stage), 20, ('sap_stages_kernel',)),
+                    big, big_seeds, stage), 20, SAP_STAGES),
                 plain_ms=time_ms(lambda: fk.sap_stages_plain(
                     big, big_seeds, H, w3, stage), 2, 1),
                 # the raster read once, the output written once
@@ -1101,7 +1103,7 @@ OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
                'greedy_kernel',
                'mix_noise_kernel', 'mix_bilateral_kernel', 'brownian_',
                'bloom_kernel', 'bilateral_kernel', 'threefry_kernel',
-               'sap_stages_kernel')
+               SAP_STAGES[0])
 
 
 def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:

@@ -663,8 +663,10 @@ def test_generic_route_card_matches_cpu(dev, noise):
                                           ((3, 24, 40), 56)])
 @pytest.mark.parametrize('dtype', [torch.uint8, torch.float32])
 def test_sap_stages_kernel_matches_plain(dev, shape, tile_h, dtype):
-    """Every stage on an edge-padded raster, and the full stage on a
-    random raster (pad rows and pad lanes included), bit-exact."""
+    """Every stage on an edge-padded raster and on a random raster (pad
+    rows and pad lanes included), bit-exact, and the full stage of
+    `sap_full_padded` on a random raster; the full stage sliced to (h, w3)
+    equals kernel 1 on the same images."""
     from tpudenoise_torch.benchmarks.profile_sap_breakdown import pad_raster
     from tpudenoise_torch.noise import fused_kernels as fk
     rng = np.random.RandomState(sum(shape) + tile_h)
@@ -673,18 +675,82 @@ def test_sap_stages_kernel_matches_plain(dev, shape, tile_h, dtype):
     seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, b).astype(
         np.int32))
     raster = pad_raster(im, tile_h)
-    for stage in fk.STAGES:
-        got = fk.sap_stages(raster.to(dev), seeds.to(dev), h, 3 * w, stage)
-        torch.cuda.synchronize()
-        assert got.dtype == dtype
-        torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
-            raster, seeds, h, 3 * w, stage), atol=0, rtol=0)
-    noise = torch.from_numpy(rng.randint(0, 256, raster.shape).astype(
-        np.float32))
+    noise = torch.from_numpy(rng.randint(0, 256, raster.shape)).to(dtype)
+    for r in (raster, noise):
+        for stage in fk.STAGES:
+            got = fk.sap_stages(r.to(dev), seeds.to(dev), h, 3 * w, stage)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
+                r, seeds, h, 3 * w, stage), atol=0, rtol=0)
+    full = fk.sap_stages(raster.to(dev), seeds.to(dev), h, 3 * w, 'full')
+    kernel1 = fk.fused_sap_median_batched(im.to(dev), seeds.to(dev), 0.4,
+                                          True)
+    assert torch.equal(full[:, :h, :3 * w].reshape(b, h, w, 3), kernel1)
+    noise = noise.to(torch.float32)
     got = fk.sap_full_padded(noise.to(dev), seeds.to(dev), h, 3 * w, 0.7)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
         noise, seeds, h, 3 * w, 'full', 0.7), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('form', ['non-integers', 'negatives and -0.0',
+                                  'integers with a few non-integer rows',
+                                  'wide range'])
+def test_sap_stages_f32_routes_match_plain(dev, form):
+    """f32 rasters that are not all integers in [0, 255]: blocks leave the
+    packed route at their first step or in mid-walk and take the float
+    walk; the output equals the plain version, and its bits are those of
+    the float walk alone (`sap_stages_f32_float`, no wrapper calls it)."""
+    from tpudenoise_torch.benchmarks.profile_noise_kernels import (
+        stages_f32_float)
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(len(form))
+    b, h, w3, hp, w3p = 2, 61, 903, 64, 1024
+    raster = rng.randint(0, 256, (b, hp + 8, w3p)).astype(np.float32)
+    if form == 'non-integers':
+        raster += rng.uniform(-0.5, 0.5, raster.shape).astype(np.float32)
+    elif form == 'negatives and -0.0':
+        raster -= 128
+        raster[rng.rand(*raster.shape) < 0.1] = -0.0
+    elif form == 'integers with a few non-integer rows':
+        raster[:, rng.randint(20, hp + 8, 3), ::29] += 0.5
+    else:
+        raster = (rng.choice([-1, 1], raster.shape)
+                  * 10.0 ** rng.uniform(-2, 9, raster.shape)).astype(
+                      np.float32)
+    raster = torch.from_numpy(raster)
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, b).astype(
+        np.int32))
+    for stage in fk.STAGES:
+        got = fk.sap_stages(raster.to(dev), seeds.to(dev), h, w3, stage)
+        alone = stages_f32_float(raster.to(dev), seeds.to(dev), h, w3,
+                                 stage)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), fk.sap_stages_plain(
+            raster, seeds, h, w3, stage), atol=0, rtol=0)
+        assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+
+
+@pytest.mark.parametrize('dtype', [torch.uint8, torch.float32])
+def test_sap_stages_unaligned_rows_match_plain(dev, dtype):
+    """Rows that are not 16-byte aligned take the copy and noise stages'
+    scalar form: w3p = 130, and a raster that starts one element into its
+    buffer."""
+    from tpudenoise_torch.noise import fused_kernels as fk
+    rng = np.random.RandomState(5)
+    b, h, w3, hp, w3p = 2, 13, 126, 16, 130
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, b).astype(
+        np.int32)).to(dev)
+    n = b * (hp + 8) * w3p
+    buf = torch.from_numpy(rng.randint(0, 256, n + 1)).to(dtype).to(dev)
+    for raster in (buf[:n].view(b, hp + 8, w3p),
+                   buf[1:].view(b, hp + 8, w3p)):
+        for stage in fk.STAGES:
+            got = fk.sap_stages(raster, seeds, h, w3, stage)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), fk.sap_stages_plain(
+                raster.cpu(), seeds.cpu(), h, w3, stage))
 
 
 def test_res50_chunk_forward_card_matches_cpu(dev):

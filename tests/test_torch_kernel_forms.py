@@ -1,7 +1,7 @@
 """The identities that the CUDA forms of kernels 1 and 2 (sap + median,
-gaussian + blur, `csrc/fused_noise.cu`) and kernel 6 (mixed noise,
-`csrc/mix_noise.cu`) rest on, checked on the CPU in the kernels'
-operation order.
+gaussian + blur, `csrc/fused_noise.cu`), kernel 6 (mixed noise,
+`csrc/mix_noise.cu`) and kernels 9-11 (`csrc/sap_stages.cu`) rest on,
+checked on the CPU in the kernels' operation order.
 
 * Kernel 1's packed route: a lane at two rows in one 32-bit word (u16x2)
   sorted by three-input per-half min/max, mid = a + b + c - lo - hi and
@@ -17,6 +17,13 @@ operation order.
   windows of `threads` lanes, segments of rows walked 8 rows a step, rows
   -1 and h of the first pass taken in reversed order on the float route)
   equals the plain version bit for bit on both routes.
+* Kernels 9-11's walk: a numpy model of the stage kernels' loop on a
+  pre-padded raster (a lane a thread, windows of 24 and 40 lanes,
+  segments over hp walked in pairs of rows, raster rows unclamped and
+  hash rows clamped, re-pad of filtered rows -1 and h only, pad lanes
+  covered; u8 packed, f32 packed until a step's values fail the integer
+  test and on the float walk from there) equals sap_stages_plain bit for
+  bit for med1 and full.
 * Kernel 6's samplers: torch models of the early-exit forms (the inverse
   CDF leaves once u <= cdf, PTRS stops at its first accepted round and
   draws the fallback only where none accepted, gamma stops at its first
@@ -342,6 +349,234 @@ def test_row_hash_from_lane_term_is_hash2d():
     want = fk.hash2d(*(torch.from_numpy(v.astype(np.int64))
                        for v in (iy, ix, seed)))
     np.testing.assert_array_equal(h.astype(np.int64), want.numpy())
+
+
+# ------------------------- kernels 9-11: the walk on a pre-padded raster --
+
+class _PackedRoute:
+    """PackedMedian on numpy: a lane at rows j (bits 0-15) and j + 1
+    (16-31) of a pair in one uint32."""
+    pairs = 4
+
+    @staticmethod
+    def pack(top, bot):
+        return _pack(top.astype(U32), bot.astype(U32))
+
+    @staticmethod
+    def join(a, c):   # __byte_perm(a, c, 0x5432)
+        return (a >> U32(16)) | (c << U32(16))
+
+    sort3 = staticmethod(_sort3_packed)
+
+    @staticmethod
+    def merge(taps, tl, tr):
+        return _merge_packed([tuple(v[i] for v in taps)
+                              for i in (tl, slice(None), tr)])
+
+    @staticmethod
+    def both_bot(m):
+        return _pack(*(2 * [m >> U32(16)]))
+
+    @staticmethod
+    def both_top(m):
+        return _pack(*(2 * [m & U32(0xFFFF)]))
+
+    @staticmethod
+    def top_from(m, prev):
+        return _pack(prev >> U32(16), m >> U32(16))
+
+    @staticmethod
+    def rows(v):
+        return _halves(v)
+
+    @staticmethod
+    def to_float(v):   # the carried rows of a block leaving the route
+        return np.stack(_halves(v)).astype(F)
+
+
+class _FloatRoute:
+    """FloatMedian on numpy: a pair as a (2, lanes) float32 array."""
+    pairs = 2
+    pack = staticmethod(lambda top, bot: np.stack([top, bot]).astype(F))
+    join = staticmethod(lambda a, c: np.stack([a[1], c[0]]))
+    sort3 = staticmethod(_sort3_f)
+
+    @staticmethod
+    def merge(taps, tl, tr):
+        return _merge_f([tuple(v[:, i] for v in taps)
+                         for i in (tl, slice(None), tr)])
+
+    both_bot = staticmethod(lambda m: np.stack([m[1], m[1]]))
+    both_top = staticmethod(lambda m: np.stack([m[0], m[0]]))
+    top_from = staticmethod(lambda m, prev: np.stack([prev[1], m[1]]))
+    rows = staticmethod(lambda v: (v[0], v[1]))
+
+
+def _integer_u8(v):
+    """CheckedPacked's test: the bits of an integer in [0, 255] (not NaN,
+    not -0.0)."""
+    with np.errstate(invalid='ignore'):
+        return ((v >= 0) & (v <= 255) & (np.trunc(v) == v)
+                & ~((v == 0) & np.signbit(v)))
+
+
+def _stage_walk(noisy, raw, h, w3, double, threads, seg_rows, route):
+    """sap_stages_walk_kernel over one image's raster: noisy (hp + 8, w3p)
+    float32 values after salt & pepper (raster row g + 4 holds global row
+    g), raw the raster before it.  A block of `threads` lanes per strip
+    and a segment of seg_rows output rows walks its rows in steps of
+    pairs; route 'packed' (u8), 'checked' (f32: packed while every value
+    a step loads passes `_integer_u8`, the float route from the first
+    step where one does not) or 'float'.  Returns (hp, w3p) float32, and
+    the number of blocks that left the packed route."""
+    rows, w3p = noisy.shape
+    hp = rows - 8
+    out = np.full((hp, w3p), np.nan, F)
+    t = np.arange(threads)
+    out_w = threads - 12
+    d = 2 if double else 1
+    switched = 0
+    for c0 in range(0, w3p, out_w):
+        x = c0 - 6 + t
+        mid = (t >= 3) & (t < threads - 3)
+        tl = np.where(mid & (x >= 3), t - 3, t)
+        tr = np.where(mid & (x < w3 - 3), t + 3, t)
+        outl = (x >= 0) & (x < w3p) & (t >= 6) & (t < threads - 6)
+        xc = np.clip(x, 0, w3p - 1)
+        for r0 in range(0, hp, seg_rows):
+            r1 = min(r0 + seg_rows, hp)
+            R = _FloatRoute if route == 'float' else _PackedRoute
+            z = np.zeros(threads, U32)
+            a = mp = R.pack(z, z)
+            j0 = r0 - d - (2 if double and r0 == h + 1 else 0)
+            while j0 - d < r1:
+                P = R.pairs
+                edge = not (j0 - d >= r0 and j0 - d + 2 * P <= r1
+                            and j0 + 2 * P <= h)
+                a_in, bad, taps = a, False, []
+                for k in range(P):
+                    n = []
+                    for j in (j0 + 2 * k, j0 + 2 * k + 1):
+                        assert j >= -4 and (edge or 0 <= j < h)
+                        y = min(j, hp + 3) + 4
+                        v = noisy[y, xc]
+                        if R is _PackedRoute:
+                            bad |= not _integer_u8(raw[y, xc]).all()
+                            v = np.where(_integer_u8(v), v, 0).astype(U32)
+                        n.append(v)
+                    c = R.pack(*n)
+                    taps.append(R.sort3(a, R.join(a, c), c))
+                    a = c
+                if route == 'checked' and R is _PackedRoute and bad:
+                    # redo the step on the float route, rows converted
+                    switched += 1
+                    a, mp = R.to_float(a_in), R.to_float(mp)
+                    R = _FloatRoute
+                    continue
+                m = [R.merge(tp, tl, tr) for tp in taps]
+
+                def put(o, v):
+                    for row, val in zip((o, o + 1), R.rows(v)):
+                        if not edge:
+                            assert r0 <= row < r1
+                        elif not r0 <= row < r1:
+                            continue
+                        out[row, x[outl]] = val[outl]
+
+                if double:
+                    if edge and (j0 <= 0 or j0 + 2 * P > h):
+                        prev = mp
+                        for k in range(P):
+                            j = j0 + 2 * k
+                            if j == 0:
+                                m[k] = R.both_bot(m[k])
+                            if j == h:
+                                m[k] = R.both_top(m[k])
+                            if j == h + 1:
+                                m[k] = R.top_from(m[k], prev)
+                            prev = m[k]
+                    taps = []
+                    for k in range(P):
+                        taps.append(R.sort3(mp, R.join(mp, m[k]), m[k]))
+                        mp = m[k]
+                    for k in range(P):
+                        put(j0 + 2 * k - 2, R.merge(taps[k], tl, tr))
+                else:
+                    for k in range(P):
+                        put(j0 + 2 * k - 1, m[k])
+                j0 += 2 * P
+    assert not np.isnan(out).any()
+    return out, switched
+
+
+def _stage_noisy(raster, seed, h, w3):
+    """The salt & pepper values of every raster row (float32), as
+    sap_stages_plain draws them."""
+    rows, w3p = raster.shape
+    iy = torch.arange(-fk.HALO, rows - fk.HALO).clamp(0, h - 1)[:, None]
+    ix = torch.arange(w3p).clamp(max=w3 - 1)[None]
+    bits = fk.hash2d(iy, ix, torch.tensor(int(seed) & fk._M32)).numpy()
+    flipped = bits < fk._sap_threshold(0.4)
+    salted = (bits & 1) == 1
+    noisy = np.where(flipped & salted, F(255), raster.astype(F))
+    return np.where(flipped & ~salted, F(0), noisy).astype(F)
+
+
+# (h, w, tile height): h <= 3 and odd, hp - h of several whole steps, w3 =
+# 3 (125 pad lanes), w3p = 256
+STAGE_CASES = {'h 1': (1, 5, 8), 'h 2': (2, 5, 8), 'h 3': (3, 5, 8),
+               'h 13': (13, 5, 8), 'h 3, tile 56': (3, 5, 56),
+               'w3 3': (7, 1, 8), 'w3 150': (9, 50, 8)}
+STAGE_INPUTS = {'u8': 'packed', 'f32 integers': 'checked',
+                'f32 non-integers': 'checked',
+                'f32 leaving packed mid-walk': 'checked',
+                'f32 float walk': 'float'}
+
+
+@pytest.mark.parametrize('stage', ['med1', 'full'])
+@pytest.mark.parametrize('inputs', list(STAGE_INPUTS))
+@pytest.mark.parametrize('case', list(STAGE_CASES))
+def test_stage_walk_matches_plain(case, inputs, stage):
+    """The walk of kernels 9-11 (windows of 24 lanes for one image and 40
+    for the other, segments of hp, 8, 3 and h + 1 rows walked in pairs)
+    equals sap_stages_plain bit
+    for bit, on the edge-padded raster and on a random one (halo rows and
+    pad lanes random): u8 on the packed route; f32 integers packed to the
+    end; f32 non-integers (with -0.0 and negatives) leaving the packed
+    route at a segment's first step, or (a few rows of non-integers in
+    the lower half) in mid-walk; f32 on the float walk alone."""
+    from tpudenoise_torch.benchmarks.profile_sap_breakdown import pad_raster
+    h, w, tile = STAGE_CASES[case]
+    rng = np.random.RandomState(h * 100 + w + tile)
+    im = rng.randint(0, 256, (2, h, w, 3))
+    seeds = rng.randint(-2**31, 2**31 - 1, 2).astype(np.int32)
+    edge = pad_raster(torch.from_numpy(im), tile).numpy()
+    route = STAGE_INPUTS[inputs]
+    switched = 0
+    for raster in (edge, rng.randint(0, 256, edge.shape)):
+        raster = raster.astype(F)
+        hp = raster.shape[1] - 8
+        if inputs in ('f32 non-integers', 'f32 float walk'):
+            raster += rng.uniform(-0.5, 0.5, raster.shape).astype(F)
+            raster[rng.rand(*raster.shape) < 0.05] = F(-0.0)
+        elif inputs == 'f32 leaving packed mid-walk':
+            rows = rng.randint(hp // 2 + 4, hp + 8, 2)
+            raster[:, rows, ::17] += F(0.25)
+        dtype = torch.uint8 if inputs == 'u8' else torch.float32
+        r = torch.from_numpy(raster).to(dtype)
+        want = fk.sap_stages_plain(r, torch.from_numpy(seeds), h, 3 * w,
+                                   stage).numpy().astype(F)
+        raw = r.numpy().astype(F)
+        for i, threads in enumerate((24, 40)):
+            noisy = _stage_noisy(raw[i], seeds[i], h, 3 * w)
+            for seg in sorted({hp, 8, 3, h + 1} & set(range(1, hp + 1))):
+                got, n = _stage_walk(noisy, raw[i], h, 3 * w,
+                                     stage == 'full', threads, seg, route)
+                switched += n
+                np.testing.assert_array_equal(
+                    got, want[i], err_msg=f'threads {threads} rows {seg}')
+    assert (switched > 0) == (inputs in ('f32 non-integers',
+                                         'f32 leaving packed mid-walk'))
 
 
 # ----------------------------------------------- kernel 6: the samplers --

@@ -7,7 +7,8 @@ their Pallas kernels in interpret mode on the CPU; the port's entry points
 run `sap_stages_plain`, which the CUDA kernels are held to on the card.
 Every stage is min/max and integer hashing, so nothing may differ, at two
 tile heights, with h not a multiple of the tile height and the raster's
-pad lanes present (w3 = 120, w3p = 128)."""
+pad lanes present (w3 = 120, w3p = 128), and at the walk's edge shapes
+(h <= 3, w3 = 3)."""
 
 import importlib.util
 import os.path as osp
@@ -73,6 +74,40 @@ def test_u8_stage_matches_reference(ref_breakdown, images, tile_h, stage):
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
 
+
+
+# (B, h, w, tile height): h <= 3 (one tile of 8, and one of 56: hp - h of
+# several walk steps) and w3 = 3 (W = 1: 125 pad lanes)
+EDGE_SHAPES = {'h 1': (2, 1, 5, 8), 'h 2': (1, 2, 7, 8),
+               'h 3, w3 3': (2, 3, 1, 8),
+               'h 3, tile 56': (1, 3, 4, 56), 'h 7, w3 3': (1, 7, 1, 8)}
+
+
+def _edge_images(name):
+    b, h, w, tile_h = EDGE_SHAPES[name]
+    rng = np.random.RandomState(b + 10 * h + 100 * w)
+    return (rng.randint(0, 256, (b, h, w, 3)).astype(np.float32),
+            rng.randint(-2**31, 2**31 - 1, b).astype(np.int32), tile_h)
+
+
+@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('dtype', ['f32', 'u8'])
+@pytest.mark.parametrize('shape', list(EDGE_SHAPES))
+def test_edge_shape_stage_matches_reference(ref_breakdown, shape, dtype,
+                                            stage):
+    """`run` and `u8_run` against the reference's `run` and `_u8_run_jit`
+    at the walk's edge shapes."""
+    img, seeds, tile_h = _edge_images(shape)
+    ref, port = ((ref_breakdown.run, tpsb.run) if dtype == 'f32'
+                 else (ref_breakdown._u8_run_jit, tpsb.u8_run))
+    if dtype == 'u8':
+        img = img.astype(np.uint8)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ref(jnp.asarray(img), jnp.asarray(seeds), tile_h,
+                              stage))
+    got = port(torch.from_numpy(img), torch.from_numpy(seeds), tile_h, stage)
+    assert got.dtype == (torch.float32 if dtype == 'f32' else torch.uint8)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 def test_full_stage_is_the_eval_noise(images):
     """The full stage on the edge-padded raster is kernel 1's output."""

@@ -1,7 +1,8 @@
 """Time the threefry draw kernel, the bloom kernel (kernel 8), kernels 1
 and 4 (salt & pepper + median, batched and one image a launch), kernel 2
-(gaussian + blur) and kernels 6 and 7 (mixed noise, and mixed noise +
-bilateral) through the port's wrappers, at the main paths' shapes, in
+(gaussian + blur), kernels 6 and 7 (mixed noise, and mixed noise +
+bilateral) and kernels 9-11 (salt & pepper + median cut into stages, on a
+pre-padded raster) through the port's wrappers, at their paths' shapes, in
 milliseconds by CUDA events (host time between the launches included) and
 by torch.profiler device time (the kernels alone).
 
@@ -29,6 +30,13 @@ Cases:
     on 8 poisson images dark in their left half (both of poisson's
     samplers in one warp); `fused_mix_bilateral` on the 8 images of
     poisson, gamma, gaussian and original;
+  * `noise/fused_kernels.py:sap_stages` at the profiling scripts' size
+    (128 images of 600x1000, `STAGE_TILES`): every stage of the f32
+    (kernel 9) and u8 (kernel 10) edge-padded rasters of the same random
+    images, and `sap_full_padded` (kernel 11) on `profile_fused`'s random
+    raster; where the library exports it (older trees do not), med1 and
+    full of the f32 raster through the float walk alone
+    (`sap_stages_f32_float`), the yardstick of the packed start;
   * `core/prng.py:threefry_draw` in its three modes for 8 keys x 1.8M
     words (one (8, 600, 1000, 3) field: the speckle draw is the normal
     one) and the uniform draw for 64 keys x 1.8M (poisson's PTRS rounds:
@@ -36,17 +44,21 @@ Cases:
   * the summed threefry device time of one poisson noise stage on 8
     images of 600x1000 (its three draws: 8, 8 and 64 keys), last: a trace
     after its long ones has come back short of launches on the card;
-  * parity: no timing, one hash of every output of kernels 1, 2, 4, 6 and
-    7 on small and odd shapes (odd widths, H = 1 or 2 and W = 1 or 2,
-    B = 1, 8 and 9; u8 and f32 with and without noise, non-integer and
+  * parity: no timing, one hash of every output of kernels 1, 2, 4, 6, 7
+    and 9-11 on small and odd shapes (odd widths, H = 1 or 2 and W = 1 or
+    2, B = 1, 8 and 9; u8 and f32 with and without noise, non-integer and
     wide-range f32 values, one and two medians or blurs; all 13 kinds, a
-    dark-band poisson image and one with four distinct values).
+    dark-band poisson image and one with four distinct values; every
+    stage on edge-padded and random rasters, f32 rasters of non-integers
+    and with a few non-integer rows, and rows that are not 16-byte
+    aligned).
 Each case also prints a hash of the output, so that two versions of the
 port, run one after the other on the same card, can be shown to give the
 same bits.  --match S (repeatable) times only the cases whose names hold
-one of the S, and hashes no parity outputs.  The script uses only entry
-points that the port has had since its threefry kernel came: to time an
-older tree, copy this file and `timing.py` into its
+one of the S, and hashes no parity outputs (`--match "kernels 9-11"`
+picks kernels 9-11; "kernel 1" does not match them).  The script uses
+only entry points that the port has had since its threefry kernel came:
+to time an older tree, copy this file and `timing.py` into its
 `tpudenoise_torch/benchmarks/` and run it there.  The last line is the
 card's name and power limit; the one before it the results as JSON.
 Runs on the GPU only.
@@ -64,6 +76,8 @@ import torch
 
 from tpudenoise_torch import cuda_build
 from tpudenoise_torch.benchmarks import profile_bilateral as pb
+from tpudenoise_torch.benchmarks import profile_fused as pf
+from tpudenoise_torch.benchmarks import profile_sap_breakdown as psb
 from tpudenoise_torch.benchmarks.timing import card_line, device_ms, time_ms
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.noise import bloom as bl
@@ -81,6 +95,12 @@ THREEFRY = ('threefry_kernel',)
 BLOOM = ('bloom_kernel',)
 BLOOM_KIND = 11         # Kind.BLOOM
 SAP = ('sap_median_kernel',)
+# kernels 9-11: the stage kernels' names begin so in every tree
+STAGES = ('sap_stages_',)
+STAGE_B = 128
+# the tile heights the profiling scripts' rows are timed at
+STAGE_TILES = {'sap_stages_f32': 56, 'sap_stages_u8': 120,
+               'sap_full_padded': 56}
 GAUSS = ('gauss_blur_kernel',)
 MIX = ('mix_noise_kernel', 'brownian_')
 MIX_BIL = ('mix_bilateral_kernel', 'brownian_')
@@ -167,6 +187,54 @@ def sap_cases(dev) -> dict:
     return cases
 
 
+def stages_f32_float(raster, seeds, h, w3, stage):
+    """The f32 stages with med1 and full on the float walk alone (no
+    wrapper calls it)."""
+    b, rows, w3p = raster.shape
+    out = torch.empty((b, rows - 2 * fk.HALO, w3p), dtype=raster.dtype,
+                      device=raster.device)
+    cuda_build.launch('sap_stages', 'sap_stages_f32_float', raster, out,
+                      seeds, b, h, w3, rows - 2 * fk.HALO, w3p,
+                      fk.STAGES.index(stage), fk._sap_threshold_i32(0.4))
+    return out
+
+
+def has_stage_float_walk() -> bool:
+    return hasattr(cuda_build.library('sap_stages'), 'sap_stages_f32_float')
+
+
+def stage_cases(dev) -> dict:
+    """{case: (fn, symbols, launches a call)} for kernels 9-11 at B = 128:
+    the rasters `profile_sap_breakdown.run` / `u8_run` and
+    `profile_fused.kernel_only` hand their kernels."""
+    rng = np.random.RandomState(3)
+    images = torch.from_numpy(rng.randint(0, 256, (STAGE_B, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    seeds = torch.arange(STAGE_B, dtype=torch.int32, device=dev)
+    f32 = psb.pad_raster(images.to(torch.float32),
+                         STAGE_TILES['sap_stages_f32'])
+    u8 = psb.pad_raster(images, STAGE_TILES['sap_stages_u8'])
+    del images
+    padded, pseeds = pf.padded_raster(STAGE_TILES['sap_full_padded'], dev)
+    float_walk = has_stage_float_walk()
+    cases = {}
+    for stage in fk.STAGES:
+        cases[f'kernels 9-11, f32 {stage}, B={STAGE_B}'] = (
+            lambda st=stage: fk.sap_stages(f32, seeds, H, 3 * W, st),
+            STAGES, 1)
+        cases[f'kernels 9-11, u8 {stage}, B={STAGE_B}'] = (
+            lambda st=stage: fk.sap_stages(u8, seeds, H, 3 * W, st),
+            STAGES, 1)
+        if float_walk and stage in ('med1', 'full'):
+            cases[f'kernels 9-11, f32 {stage} through the float walk, '
+                  f'B={STAGE_B}'] = (
+                lambda st=stage: stages_f32_float(f32, seeds, H, 3 * W, st),
+                STAGES, 1)
+    cases[f'kernels 9-11, kernel_only full, B={STAGE_B}'] = (
+        lambda: fk.sap_full_padded(padded, pseeds, H, 3 * W, 0.4), STAGES, 1)
+    return cases
+
+
 def gauss_mix_cases(dev) -> dict:
     """{case: (fn, symbols, launches a call)} for kernels 2, 6 and 7."""
     u8, f32, seeds, sig = gauss_inputs(dev, (B, H, W), 3)
@@ -208,6 +276,46 @@ GAUSS_SHAPES = [(1, 2, 2), (1, 2, 7), (2, 3, 5), (3, 37, 29), (8, 37, 101),
                 (1, 130, 333), (2, 601, 999)]
 MIX_SHAPES = [(24, 40), (37, 71), (75, 290)]
 
+# (B, h, w, tile height) of the stage kernels' parity: h <= 3, odd h, hp -
+# h of several walk steps, w3 = 3, w3p of 128 and 3072
+STAGE_SHAPES = [(2, 1, 5, 8), (1, 3, 1, 56), (2, 13, 40, 8),
+                (1, 61, 301, 16), (2, 600, 1000, 56)]
+
+
+def stage_parity(dev, b, h, w, tile_h) -> dict:
+    """{case: hash} of every stage of kernels 9-11 on one shape: edge-padded
+    u8 and f32 rasters, random ones (halo rows and pad lanes random), f32
+    non-integers and integers with a few non-integer rows; and every
+    stage on a raster whose rows are not 16-byte aligned."""
+    rng = np.random.RandomState(b + h + w + tile_h)
+    im = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(
+        np.uint8)).to(dev)
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, b).astype(
+        np.int32)).to(dev)
+    edge = psb.pad_raster(im, tile_h)
+    hp = edge.shape[1] - 2 * fk.HALO
+    rand = torch.from_numpy(rng.randint(0, 256, tuple(edge.shape))).to(dev)
+    frac = rand.to(torch.float32) + torch.from_numpy(rng.uniform(
+        -0.5, 0.5, tuple(edge.shape)).astype(np.float32)).to(dev)
+    rows = rand.to(torch.float32)
+    rows[:, rng.randint(hp // 2, hp + 2 * fk.HALO, 2), ::29] += 0.5
+    n = b * (hp + 2 * fk.HALO) * (3 * w + 2)
+    buf = torch.from_numpy(rng.randint(0, 256, n + 1)).to(dev)
+    rasters = {'u8 edge': edge, 'f32 edge': edge.to(torch.float32),
+               'u8 random': rand.to(torch.uint8),
+               'f32 random': rand.to(torch.float32),
+               'f32 non-integers': frac, 'f32 non-integer rows': rows,
+               'u8 unaligned': buf.to(torch.uint8)[1:].view(
+                   b, hp + 2 * fk.HALO, 3 * w + 2),
+               'f32 unaligned': buf.to(torch.float32)[1:].view(
+                   b, hp + 2 * fk.HALO, 3 * w + 2)}
+    out = {}
+    for name, r in rasters.items():
+        for stage in fk.STAGES:
+            out[f'kernels 9-11 {(b, h, w, tile_h)} {name} {stage}'] = sha(
+                fk.sap_stages(r, seeds, h, 3 * w, stage))
+    return out
+
 
 def parity(dev) -> dict:
     """{case: hash} of kernels 1, 2, 4, 6 and 7 on small and odd shapes."""
@@ -242,6 +350,8 @@ def parity(dev) -> dict:
                 got = fk.fused_gaussian_blur(im, seeds, var, double,
                                              sigmas=sg)
                 out[f'kernel 2 {shape} {name} double={double}'] = sha(got)
+    for b, h, w, tile_h in STAGE_SHAPES:
+        out.update(stage_parity(dev, b, h, w, tile_h))
     entries = list(pb.MIX_ENTRIES)
     for h, w in MIX_SHAPES:
         cases = {'all kinds': mix_case(dev, h, w, entries, h * w),
@@ -315,8 +425,8 @@ def profile(dev, iters: int = 20, match: list | None = None) -> dict:
     hash}, 'parity_hash': hash of the parity hashes}; with `match`, only
     the cases whose names hold one of its strings, and no parity."""
     out = {}
-    groups = (bloom_cases, sap_cases, gauss_mix_cases, threefry_cases,
-              poisson_case)
+    groups = (bloom_cases, sap_cases, gauss_mix_cases, stage_cases,
+              threefry_cases, poisson_case)
     cases = {k: v for g in groups for k, v in g(dev).items()
              if match is None or any(m in k for m in match)}
     for case, (fn, symbols, per_call) in cases.items():

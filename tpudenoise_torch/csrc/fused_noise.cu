@@ -57,35 +57,6 @@ constexpr int kHalo = 6;                       // two stencils x 3 lanes
 constexpr int kOut = kThreads - 2 * kHalo;     // output lanes a block
 constexpr int kBlocksPerSm = 2;                // launch bounds
 
-// Rows a segment: the fewest waves of kBlocksPerSm blocks on every SM
-// times the rows a block walks (the segment, 4 halo rows, rounded up to
-// whole steps of `step` rows).  The kernels are bound by latency as much
-// as by issue, so a wave that fills every SM's block slots beats one with
-// fewer, longer blocks.
-int seg_rows_for(int b, int h, int strips, int step) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  int best = h, best_cost = -1;
-  for (int rows = h; rows >= 8; --rows) {
-    const int segs = (h + rows - 1) / rows;
-    if ((h + segs - 1) / segs != rows) continue;   // same segments, fewer rows
-    const long long blocks = (long long)strips * segs * b;
-    const long long slots = (long long)sms * kBlocksPerSm;
-    const long long walked = (rows + 4 + step - 1) / step * step;
-    const long long cost = (blocks + slots - 1) / slots * walked;
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best = rows;
-    }
-  }
-  return best;
-}
-
 // ------------------------------------------- salt & pepper + median ----
 //
 // Kernel 1 (and kernel 4, its one-image launch).  The walk steps over
@@ -93,162 +64,26 @@ int seg_rows_for(int b, int h, int strips, int step) {
 // [0, h - 1]: BORDER_REPLICATE), sorts its lane's two vertical triples
 // (rows j - 2 .. j and j - 1 .. j + 1) once, and shares the sorted
 // columns (lo, mid, hi) with lanes +-3.  A 3x3 median is then the merge of
-// three sorted columns, median9's own last step: med3(max of the los,
-// med3 of the mids, min of the his).  The first pass gives rows j - 1 and
-// j; the second pass sorts the thread's own first-pass rows j - 3 .. j
-// the same way and gives output rows j - 2 and j - 1 (one median: rows
-// j - 1 and j are the output).  Per element and pass: one column sort,
-// three shared stores and six loads, against median9's three sorts and
-// nine loads.  First-pass rows -1 and h are replaced by rows 0
-// and h - 1 before the second pass (cv2 re-pads the filtered image);
-// lanes x < 3 take themselves as left neighbour, lanes x >= w3 - 3 as
-// right one.
-//
-// Two routes, chosen by the input's type:
-//   * PackedMedian (u8): after salt & pepper every value is an integer in
-//     [0, 255], so one 32-bit word holds a lane at both rows of a pair
-//     (u16x2: row j in bits 0-15, row j + 1 in bits 16-31) and Hopper's
-//     DPX three-input min/max sort both rows' columns at once:
-//     lo = vimin3(a, b, c), hi = vimax3(a, b, c), mid = a + b + c - lo -
-//     hi (no half exceeds 765, so nothing carries or borrows across the
-//     halves; tests/test_torch_kernel_forms.py checks every u8 triple);
-//   * FloatMedian (f32, any value): the same walk on float pairs with
-//     sap::sort3 and median9's merge, operation for operation, so NaN and
-//     signed zeros come out as median9 gives them.
-
-struct PackedMedian {
-  using V = uint32_t;   // a lane at rows j (bits 0-15) and j + 1 (16-31)
-  using S = uint32_t;   // one element
-  static constexpr int kPairs = 4;   // pairs a step: 8 rows
-  static __device__ __forceinline__ V zero() { return 0u; }
-  template <typename T>
-  static __device__ __forceinline__ S value(const T* p, uint32_t bits,
-                                            uint32_t thresh) {
-    static_assert(sizeof(T) == 1, "the packed route takes u8 images");
-    const uint32_t v = *p;
-    return bits < thresh ? ((bits & 1u) ? 255u : 0u) : v;
-  }
-  static __device__ __forceinline__ V pack(S top, S bot) {
-    return __byte_perm(top, bot, 0x5410);
-  }
-  // (a's second row, c's first row): the pair between a and c
-  static __device__ __forceinline__ V join(V a, V c) {
-    return __byte_perm(a, c, 0x5432);
-  }
-  static __device__ __forceinline__ void sort3(V a, V b, V c, V& lo, V& mid,
-                                               V& hi) {
-    lo = __vimin3_u16x2(a, b, c);
-    hi = __vimax3_u16x2(a, b, c);
-    mid = a + b + c - lo - hi;
-  }
-  static __device__ __forceinline__ V max3(V l, V c, V r) {
-    return __vimax3_u16x2(l, c, r);
-  }
-  static __device__ __forceinline__ V min3(V l, V c, V r) {
-    return __vimin3_u16x2(l, c, r);
-  }
-  static __device__ __forceinline__ V med3(V a, V b, V c) {
-    return a + b + c - __vimax3_u16x2(a, b, c) - __vimin3_u16x2(a, b, c);
-  }
-  static __device__ __forceinline__ V both_bot(V m) {
-    return __byte_perm(m, 0, 0x3232);
-  }
-  static __device__ __forceinline__ V both_top(V m) {
-    return __byte_perm(m, 0, 0x1010);
-  }
-  // (prev's second row, m's second row)
-  static __device__ __forceinline__ V top_from(V m, V prev) {
-    return __byte_perm(prev, m, 0x7632);
-  }
-  static __device__ __forceinline__ void store_top(uint8_t* p, V m) {
-    *p = (uint8_t)m;
-  }
-  static __device__ __forceinline__ void store_bot(uint8_t* p, V m) {
-    *p = (uint8_t)(m >> 16);
-  }
-};
-
-struct FloatMedian {
-  using V = float2;     // x: row j, y: row j + 1
-  using S = float;
-  static constexpr int kPairs = 2;   // pairs a step: 4 rows (the same
-                                     // shared memory as PackedMedian's 8)
-  static __device__ __forceinline__ V zero() { return make_float2(0.f, 0.f); }
-  template <typename T>
-  static __device__ __forceinline__ S value(const T* p, uint32_t bits,
-                                            uint32_t thresh) {
-    return salt_pepper(load_f32(p, 0), bits, thresh);
-  }
-  static __device__ __forceinline__ V pack(S top, S bot) {
-    return make_float2(top, bot);
-  }
-  static __device__ __forceinline__ V join(V a, V c) {
-    return make_float2(a.y, c.x);
-  }
-  static __device__ __forceinline__ void sort3(V a, V b, V c, V& lo, V& mid,
-                                               V& hi) {
-    sap::sort3(a.x, b.x, c.x, lo.x, mid.x, hi.x);
-    sap::sort3(a.y, b.y, c.y, lo.y, mid.y, hi.y);
-  }
-  // median9's merge, in its order: fmaxf(fmaxf(l, c), r), fminf(fminf(l,
-  // c), r), sap::med3
-  static __device__ __forceinline__ V max3(V l, V c, V r) {
-    return make_float2(fmaxf(fmaxf(l.x, c.x), r.x),
-                       fmaxf(fmaxf(l.y, c.y), r.y));
-  }
-  static __device__ __forceinline__ V min3(V l, V c, V r) {
-    return make_float2(fminf(fminf(l.x, c.x), r.x),
-                       fminf(fminf(l.y, c.y), r.y));
-  }
-  static __device__ __forceinline__ V med3(V a, V b, V c) {
-    return make_float2(sap::med3(a.x, b.x, c.x), sap::med3(a.y, b.y, c.y));
-  }
-  static __device__ __forceinline__ V both_bot(V m) {
-    return make_float2(m.y, m.y);
-  }
-  static __device__ __forceinline__ V both_top(V m) {
-    return make_float2(m.x, m.x);
-  }
-  static __device__ __forceinline__ V top_from(V m, V prev) {
-    return make_float2(prev.y, m.y);
-  }
-  template <typename T>
-  static __device__ __forceinline__ void store_top(T* p, V m) {
-    store(p, 0, m.x);
-  }
-  template <typename T>
-  static __device__ __forceinline__ void store_bot(T* p, V m) {
-    store(p, 0, m.y);
-  }
-};
-
-// sorted columns of a step: [pair][lo, mid, hi][lane]
-template <typename R>
-using Taps = typename R::V[R::kPairs][3][kThreads];
-
-// A 3x3 median of a pair: the sorted columns of lanes tl and tr from the
-// taps, the thread's own from registers, merged as median9 merges them
-// (max of the los, med3 of the mids, min of the his, med3 of those).
-template <typename R, typename V = typename R::V>
-__device__ __forceinline__ V merge(const V (&taps)[3][kThreads], int tl,
-                                   int tr, V lo, V mid, V hi) {
-  return R::med3(R::max3(taps[0][tl], lo, taps[0][tr]),
-                 R::med3(taps[1][tl], mid, taps[1][tr]),
-                 R::min3(taps[2][tl], hi, taps[2][tr]));
-}
+// three sorted columns, the column-sort median's last step: med3(max of
+// the los, med3 of the mids, min of the his).  The first pass gives rows
+// j - 1 and j; the second pass sorts the thread's own first-pass rows
+// j - 3 .. j the same way and gives output rows j - 2 and j - 1 (one
+// median: rows j - 1 and j are the output).  Per element and pass: one
+// column sort, three shared stores and six loads, against a tile
+// median's three sorts and nine loads.  First-pass rows -1 and h are
+// replaced by rows 0 and h - 1 before the second pass (cv2 re-pads the
+// filtered image); lanes x < 3 take themselves as left neighbour, lanes
+// x >= w3 - 3 as right one.  The routes (PackedMedian for u8, FloatMedian
+// for f32), the taps and their merge live in sap_median.cuh, shared with
+// sap_stages.cu.
 
 template <typename R>
 constexpr int sap_smem_bytes() {
-  return 2 * (int)sizeof(Taps<R>);   // first pass, second pass
+  return 2 * (int)sizeof(Taps<R, kThreads>);   // first pass, second pass
 }
 static_assert(kBlocksPerSm * sap_smem_bytes<PackedMedian>() <= 227 * 1024 &&
                   kBlocksPerSm * sap_smem_bytes<FloatMedian>() <= 227 * 1024,
               "two blocks' columns fit an SM's shared memory");
-
-template <bool B>
-struct Edge {
-  static constexpr bool value = B;
-};
 
 template <typename T, typename R>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -259,8 +94,9 @@ sap_median_kernel(const T* __restrict__ in, T* __restrict__ out,
   using S = typename R::S;
   constexpr int P = R::kPairs;
   extern __shared__ __align__(16) unsigned char smem[];
-  Taps<R>& tap1 = *reinterpret_cast<Taps<R>*>(smem);
-  Taps<R>& tap2 = *reinterpret_cast<Taps<R>*>(smem + sizeof(Taps<R>));
+  Taps<R, kThreads>& tap1 = *reinterpret_cast<Taps<R, kThreads>*>(smem);
+  Taps<R, kThreads>& tap2 = *reinterpret_cast<Taps<R, kThreads>*>(
+      smem + sizeof(Taps<R, kThreads>));
   const int t = threadIdx.x;
   const int b = blockIdx.z;
   const int x = blockIdx.x * kOut - kHalo + t;   // this thread's lane
@@ -377,7 +213,7 @@ int launch_sap(const T* in, T* out, const int* seeds, int b, int h, int w3,
     if (dev < 64) allowed[dev] = true;
   }
   const int strips = (w3 + kOut - 1) / kOut;
-  const int rows = seg_rows_for(b, h, strips, 2 * R::kPairs);
+  const int rows = seg_rows_for(b, h, strips, 2 * R::kPairs, kBlocksPerSm);
   const dim3 grid(strips, (h + rows - 1) / rows, b);
   sap_median_kernel<T, R><<<grid, kThreads, smem, stream>>>(
       in, out, seeds, h, w3, rows, (uint32_t)thresh, double_filter);
@@ -572,7 +408,7 @@ int launch_gauss(const T* in, T* out, const int* seeds, const float* sigmas,
                  int b, int h, int w3, int apply_noise, int double_filter,
                  cudaStream_t stream) {
   const int strips = (w3 + kOut - 1) / kOut;
-  const int rows = seg_rows_for(b, h, strips, 1);
+  const int rows = seg_rows_for(b, h, strips, 1, kBlocksPerSm);
   const dim3 grid(strips, (h + rows - 1) / rows, b);
   gauss_blur_kernel<T, R><<<grid, kThreads, 0, stream>>>(
       in, out, seeds, sigmas, h, w3, rows, apply_noise, double_filter);
