@@ -66,11 +66,29 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      finite APs in [0, 1], chunk 0 equal to detect_chunk +
      limit_per_image (phase 4's tolerance), the ground truth scoring 1.0,
      and the loop's wall time;
+     then the CLIs, in process, with no profiler: `cli.test.main` with a
+     seeded res101 (full width and depth, rrData's two classes) written
+     as `.npz` by `save_params_npz`, experiments/cfgs/res101.yml,
+     --eval-batch 8, over 16 numpy-written 600x1000 images whose `.npy`
+     pixels lie where `get_imdb` looks: 10 finite APs, chunk 0 as
+     detect_chunk + limit_per_image, kernel 1 once and kernel 3 and the
+     walk twice a chunk; `cli.demo.main` with the same weights on
+     gaussian_gaus_blur_var0.1 over four numpy images, three 375x500 and
+     one 500x375 (scale 1.6, two buckets): the sheet (PPM) written,
+     kernel 2 once and kernel 3 and the walk twice an image, the
+     portrait image's detections as detect_chunk's; every launch of both
+     CLIs held to its plain version on its own inputs (kernel 2 at
+     375x500 and 500x375, kernel 3 and the walk at B = 1 and on the
+     two-class postprocess batches); each CLI's wall time and img/s, the
+     demo's weight load and per-image times;
   6. where the time goes: two chunks of each string under torch.profiler
      (device kernel time, idle share, the port's own kernels' share, split
      by kernel name with their launches: the threefry draws' device time
      a chunk gets a line of its own), and of the res101 sap chunk; then
-     each kernel's device time on phase 3's inputs.
+     `cli.demo` again under --profile (sheet, trace file and launches as
+     without it; the profiler's start, the profiled block and the trace
+     export timed apart); then each kernel's device time on phase 3's
+     inputs.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
@@ -85,8 +103,10 @@ before that the kernel table as JSON; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import statistics
 import sys
 import time
@@ -113,12 +133,14 @@ from tpudenoise_torch.models.faster_rcnn import FasterRCNN
 from tpudenoise_torch.noise import bloom as bl
 from tpudenoise_torch.noise import fused_kernels as fk
 from tpudenoise_torch.noise import mix_kernels as mk
+from tpudenoise_torch.noise import pipeline
 from tpudenoise_torch.noise.generators import bloom_apply_scan, bloom_params
 from tpudenoise_torch.noise.mix_prologue import (entry_draws, fixed_prologue,
                                                  plan_tables)
 from tpudenoise_torch.noise.pipeline import make_pipeline
 from tpudenoise_torch.noise.spec import Kind, parse
 from tpudenoise_torch.ops import nms
+from tpudenoise_torch.utils.blob import derive_bucket, rescale_geometry
 from tpudenoise_torch.utils.image_io import read_bgr
 
 B, H, W = 8, 600, 1000
@@ -137,6 +159,10 @@ SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
            'threefry', 'sap_stages')
 # the dataset-loop phase: images and noise string
 LOOP_IMAGES, LOOP_NOISE = 16, 'sap_median_var0.4'
+# the CLI phase: images of the eval CLI, the demo's image shapes and noise
+CLI_IMAGES = 16
+DEMO_SHAPES = ((375, 500),) * 3 + ((500, 375),)
+DEMO_NOISE = 'gaussian_gaus_blur_var0.1'
 # the res101 main path: bench_config6's model and noise
 RES_NOISES = ('sap_median_var0.4',)
 # the stage-cut kernels' symbols: the copy/noise kernel and the walk
@@ -1024,6 +1050,21 @@ def profiling_path(dev, card: str) -> dict:
     return dict(launches={k: counts[k] for k in names}, img_per_s=ips)
 
 
+def _match_dets(want, got) -> tuple:
+    """(matched, total) of detections `want` against `got`, lists of (K, 5)
+    rows per image, at phase 4's tolerance: counts within one, and each
+    wanted row with a twin within 0.5."""
+    matched = total = 0
+    for j, (a, g) in enumerate(zip(want, got)):
+        if abs(len(a) - len(g)) > 1:
+            raise AssertionError(f'image {j}: {len(g)} detections against '
+                                 f'{len(a)}')
+        for row in a:
+            total += 1
+            matched += bool(g.size and np.abs(g - row).max(1).min() < 0.5)
+    return matched, total
+
+
 def dataset_loop(card: str) -> dict:
     """The dataset loop on the card: a numpy-written rrData dataset of
     LOOP_IMAGES 600x1000 `.npy` images under build/ (filled rectangles as
@@ -1069,17 +1110,8 @@ def dataset_loop(card: str) -> dict:
         geom, geom[:, 2:], make_pipeline(LOOP_NOISE, mode='TEST'), BUCKET))
     kept = np.stack([limit_per_image(boxes[j], scores[j], mask[j], 100)
                      for j in range(B)])
-    matched = total = 0
-    for j in range(B):
-        want = _dets(boxes, scores, kept, j, 0)
-        got = loop_dets[j]
-        if abs(len(want) - len(got)) > 1:
-            raise AssertionError(f'dataset loop image {j}: {len(got)} '
-                                 f'detections, detect_chunk {len(want)}')
-        for row in want:
-            total += 1
-            matched += bool(got.size and np.abs(got - row).max(1).min()
-                            < 0.5)
+    matched, total = _match_dets([_dets(boxes, scores, kept, j, 0)
+                                  for j in range(B)], loop_dets)
     if total == 0 or matched / total < 0.95:
         raise AssertionError(f'dataset loop chunk 0: {matched}/{total} '
                              f'detections match detect_chunk')
@@ -1097,6 +1129,393 @@ def dataset_loop(card: str) -> dict:
                 aps=aps, chunk0_matched=[matched, total])
 
 
+def _timed(fn, *args):
+    """(fn(*args), wall seconds), the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _demo_image(rng, h: int, w: int) -> np.ndarray:
+    """A textured (h, w, 3) u8 frame with two filled rectangles."""
+    img = (rng.rand(h, w, 3) * 60 + 60).astype(np.uint8)
+    for _ in range(2):
+        y, x = rng.randint(0, h - 120), rng.randint(0, w - 100)
+        img[y:y + 110, x:x + 90] = rng.randint(180, 255, 3)
+    return img
+
+
+# the kernel wrappers the CLI paths launch, where those paths look them
+# up, and each one's plain version: name -> (module, attribute, plain)
+TAPPED = {'fused_sap_median_batched': (pipeline, 'fused_sap_median_batched',
+                                       fk.fused_sap_median_plain),
+          'fused_gaussian_blur': (pipeline, 'fused_gaussian_blur',
+                                  fk.fused_gaussian_blur_plain),
+          MASKS: (nms, 'build_suppression_masks_cuda',
+                  nms.build_suppression_masks),
+          WALK: (nms, 'greedy_keep', nms.greedy_keep_plain)}
+
+
+@contextlib.contextmanager
+def taped():
+    """Record each call the enclosed block makes to a TAPPED wrapper:
+    yields name -> [(args, kwargs, output)], the tensors cloned on the
+    card (the inputs before the call)."""
+    calls, saved = {}, {}
+
+    def tap(name, fn):
+        def call(*a, **k):
+            copy = [x.clone() if torch.is_tensor(x) else x for x in a]
+            kw = {n: v.clone() if torch.is_tensor(v) else v
+                  for n, v in k.items()}
+            out = fn(*a, **k)
+            calls.setdefault(name, []).append((copy, kw, out.clone()))
+            return out
+        return call
+
+    for name, (mod, attr, _) in TAPPED.items():
+        saved[name] = getattr(mod, attr)
+        setattr(mod, attr, tap(name, saved[name]))
+    try:
+        yield calls
+    finally:
+        for name, (mod, attr, _) in TAPPED.items():
+            setattr(mod, attr, saved[name])
+
+
+def hold_to_plain(calls: dict, path: str, card: str) -> dict:
+    """Each recorded launch of a CLI path against its wrapper's plain
+    version on the same inputs: kernel 2 within its bound (max |diff| 1 on
+    at most 1e-3 of the pixels), the others bit-exact.  Returns per kernel
+    the launches held, their input shapes and the largest error."""
+    held = {}
+    for name, launches in calls.items():
+        plain = TAPPED[name][2]
+        err = share = 0.0
+        for a, k, got in launches:
+            want = plain(*a, **k)
+            diff = (got.long() - want.long()).abs()
+            e = diff.max().item()
+            if name == 'fused_gaussian_blur':
+                sh = (diff.amax(-1) > 0).double().mean().item()
+                ok = e <= 1 and sh <= 1e-3
+                share = max(share, sh)
+            else:
+                ok = e == 0
+            if not ok:
+                raise AssertionError(f'{path}: {name} at {tuple(a[0].shape)} '
+                                     f'differs from its plain version '
+                                     f'(max |diff| {e})')
+            err = max(err, e)
+        shapes = sorted({tuple(a[0].shape) for a, _, _ in launches})
+        held[name] = dict(launches=len(launches), shapes=shapes,
+                          max_abs_err=err, changed_share=share)
+        log(f'{path}: {name} held to its plain version on its {len(launches)}'
+            f' launches at {shapes}: max |diff| {err}'
+            + (f', changed pixel share {share:.3e} (bound: max 1, share '
+               f'1e-3)' if name == 'fused_gaussian_blur' else
+               ' (bit-exact required)') + f'  [{card}]')
+    return held
+
+
+@contextlib.contextmanager
+def patched(mod, attr, wrap):
+    """mod.attr replaced by wrap(mod.attr) inside the block."""
+    fn = getattr(mod, attr)
+    setattr(mod, attr, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, fn)
+
+
+def timing(fn, into: list):
+    """fn, each call's wall time (the card synchronized at both ends)
+    appended to into."""
+    def call(*a, **k):
+        out, t = _timed(lambda: fn(*a, **k))
+        into.append(t)
+        return out
+    return call
+
+
+def run_cli(main, argv):
+    """main(argv) from the default module-level config, restored after;
+    returns main's result, its wall time, the launch counts (zeroed just
+    before) and a deep copy of the config it ran with."""
+    import copy
+
+    import tpudenoise_torch.core.config as config
+    defaults = copy.deepcopy(config.cfg)
+    zero_counts()
+    try:
+        res, wall = _timed(main, argv)
+        return res, wall, launch_counts(), copy.deepcopy(config.cfg)
+    finally:
+        config.cfg.clear()
+        config.cfg.update(defaults)
+
+
+def cli_inputs() -> dict:
+    """The CLIs' inputs under build/chip_smoke_cli: a seeded res101 of
+    rrData's two classes (full width and depth) written as .npz by
+    save_params_npz, CLI_IMAGES numpy-written 600x1000 rrData images whose
+    pixels lie in `get_imdb`'s pixel dir, and the demo's DEMO_SHAPES
+    images as .npy."""
+    import os.path as osp
+    import shutil
+
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    from tpudenoise_torch.models.convert import save_params_npz
+
+    repo = default_config().ROOT_DIR
+    root = osp.join(repo, 'build', 'chip_smoke_cli')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    npz = osp.join(root, 'res101_seeded.npz')
+    save_params_npz(FasterRCNN('res101', num_classes=2).init(
+        torch.Generator().manual_seed(0)), npz)
+    data_cfg = default_config()
+    data_cfg.ROOT_DIR = root
+    synthetic.write_rrdata(root, CLI_IMAGES, (H, W), seed=13, pixel_dir=(
+        default_pixel_dir('rrData_2021_test', data_cfg)))
+    rng = np.random.RandomState(14)
+    paths = []
+    for i, (h, w) in enumerate(DEMO_SHAPES):
+        paths.append(osp.join(root, f'demo{i}.npy'))
+        np.save(paths[-1], _demo_image(rng, h, w))
+    return dict(repo=repo, root=root, npz=npz, demo_paths=paths)
+
+
+def demo_argv(inp: dict, sheet: str) -> list:
+    return ['--net', 'res101', '--model', inp['npz'], '--noise', DEMO_NOISE,
+            '--classes', '__background__', 'person', '--images',
+            *inp['demo_paths'], '--out', sheet]
+
+
+def check_demo_launches(counts: dict, path: str) -> dict:
+    """kernel 2 once and kernel 3 and the walk twice an image."""
+    n = len(DEMO_SHAPES)
+    launches = {k: counts[k] for k in ('fused_gaussian_blur',) + NMS_KERNELS}
+    if launches != {'fused_gaussian_blur': n, MASKS: 2 * n, WALK: 2 * n}:
+        raise AssertionError(f'{path} launches {launches} for {n} images')
+    return launches
+
+
+def check_sheet(res: dict, sheet: str, path: str) -> tuple:
+    from tpudenoise_torch.cli import demo as cli_demo
+    shape = (max(h for h, _ in DEMO_SHAPES), sum(w for _, w in DEMO_SHAPES),
+             3)
+    if res['out'] != sheet or cli_demo.read_ppm(sheet).shape != shape:
+        raise AssertionError(f'{path} sheet {res["out"]} is not {shape}')
+    return shape
+
+
+def cli_phase(card: str, inp: dict) -> dict:
+    """The two CLIs in process, as a user calls them, each from the
+    default module-level config, with no profiler.  cli.test: the seeded
+    res101 .npz, its cfg file, --eval-batch 8 over the CLI_IMAGES images;
+    10 finite APs, chunk 0 matching detect_chunk + limit_per_image (phase
+    4's tolerance), kernel 1 once and kernel 3 and the walk twice a
+    chunk.  cli.demo: the same weights on DEMO_NOISE over the four demo
+    images (three landscape, one portrait: two buckets at scale 1.6); the
+    sheet has the panels' shape, kernel 2 launched once and kernel 3 and
+    the walk twice an image, and the portrait image's detections match
+    detect_chunk with the demo's own model on the same key.  Every launch
+    of both runs is held to its plain version on its own inputs
+    (`hold_to_plain`).  Wall times: the whole main() (config, init,
+    weights, eval), cli.test's test_net_batched, the demo's load_params
+    and each image's noise + detection."""
+    import os.path as osp
+    import pickle
+
+    from tpudenoise_torch.cli import demo as cli_demo
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    from tpudenoise_torch.eval import harness
+
+    root, npz = inp['root'], inp['npz']
+    out = {}
+
+    # cli.test, its test_net_batched timed on the side
+    loop = []
+    with taped() as calls, patched(harness, 'test_net_batched',
+                                   lambda fn: timing(fn, loop)):
+        aps, wall, counts, cfg = run_cli(cli_test.main, [
+            '--net', 'res101', '--cfg', osp.join(inp['repo'], 'experiments',
+                                                 'cfgs', 'res101.yml'),
+            '--imdb', 'rrData_2021_test', '--noise', LOOP_NOISE,
+            '--eval-batch', str(B), '--model', npz,
+            '--set', 'DATA_DIR', root, 'ROOT_DIR', root])
+    chunks = CLI_IMAGES // B
+    if len(aps) != 10 or not all(np.isfinite(a) and 0 <= a <= 1
+                                 for a in aps):
+        raise AssertionError(f'cli.test: APs {aps}')
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    if launches != {'fused_sap_median_batched': chunks, MASKS: 2 * chunks,
+                    WALK: 2 * chunks}:
+        raise AssertionError(f'cli.test launches {launches} for {chunks} '
+                             f'chunks')
+    held = hold_to_plain(calls, 'cli.test', card)
+    del calls
+    model = FasterRCNN('res101', num_classes=2, cfg=cfg)
+    params, _ = cli_test.load_params(model, npz, 'res101',
+                                     torch.Generator().manual_seed(
+                                         cfg.RNG_SEED))
+    model.to(DEV)
+    params = {k: v.to(DEV) for k, v in params.items()}
+    imdb = rrData('test', config=cfg, pixel_dir=default_pixel_dir(
+        'rrData_2021_test', cfg))
+    with open(osp.join(get_output_dir(imdb.name, npz.replace('/', '_'), cfg),
+                       'detections.pkl'), 'rb') as f:
+        cli_dets = pickle.load(f)[1][:B]
+    raw = torch.from_numpy(np.stack([read_bgr(imdb.image_path_at(i))
+                                     for i in range(B)])).to(DEV)
+    geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=DEV)
+    boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
+        model, params, prng.PRNGKey(cfg.RNG_SEED), list(range(B)), raw, geom,
+        geom[:, 2:], make_pipeline(LOOP_NOISE, mode='TEST'), BUCKET))
+    del model, params
+    kept = np.stack([limit_per_image(boxes[j], scores[j], mask[j], 100)
+                     for j in range(B)])
+    matched, total = _match_dets([_dets(boxes, scores, kept, j, 0)
+                                  for j in range(B)], cli_dets)
+    if total == 0 or matched / total < 0.95:
+        raise AssertionError(f'cli.test chunk 0: {matched}/{total} '
+                             f'detections match detect_chunk')
+    (eval_s,) = loop
+    out['cli.test'] = dict(
+        images=CLI_IMAGES, wall_s=wall, img_per_s=CLI_IMAGES / wall,
+        eval_s=eval_s, eval_img_per_s=CLI_IMAGES / eval_s, aps=aps,
+        chunk0_matched=[matched, total], launches=launches, held=held)
+    log(f'cli.test res101 over {CLI_IMAGES} images of {H}x{W}, '
+        f'{LOOP_NOISE}, --eval-batch {B}: main() {wall:.2f} s '
+        f'({CLI_IMAGES / wall:.1f} img/s: config, init, weights and eval), '
+        f'test_net_batched {eval_s:.2f} s ({CLI_IMAGES / eval_s:.1f} '
+        f'img/s, load and evaluation included); AP@.5 {aps[0]:.4f}; chunk 0 '
+        f'{matched}/{total} detections match detect_chunk; launches '
+        f'{json.dumps(launches)}  [{card}]')
+
+    # cli.demo: two buckets, no profiler; load_params and each image's
+    # two steps timed, the demo's model kept for the portrait check
+    sheet = osp.join(root, 'demo.ppm')
+    load, noise_s, detect_s, model = [], [], [], []
+
+    def keep_model(fn):
+        def call(m, p, *a, **k):
+            model[:] = [m, p]
+            return fn(m, p, *a, **k)
+        return timing(call, detect_s)
+
+    with taped() as calls, \
+            patched(cli_demo, 'load_params', lambda fn: timing(fn, load)), \
+            patched(harness, 'noise_chunk', lambda fn: timing(fn, noise_s)), \
+            patched(harness, 'detect_noisy', keep_model):
+        res, wall, counts, dcfg = run_cli(cli_demo.main,
+                                          demo_argv(inp, sheet))
+    launches = check_demo_launches(counts, 'cli.demo')
+    shape = check_sheet(res, sheet, 'cli.demo')
+    demo_held = hold_to_plain(calls, 'cli.demo', card)
+    del calls
+    # the portrait image through detect_chunk: the same stages, batched
+    j = len(inp['demo_paths']) - 1
+    im = np.load(inp['demo_paths'][j])
+    h0, w0 = im.shape[:2]
+    s, oh, ow = rescale_geometry(h0, w0, cli_demo.TARGET_SIZE,
+                                 cli_demo.MAX_SIZE)
+    geom = torch.tensor([[h0, w0, oh, ow, s]], device=DEV)
+    bucket = derive_bucket(cli_demo.TARGET_SIZE, cli_demo.MAX_SIZE,
+                           portrait=h0 > w0)
+    boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
+        *model, prng.PRNGKey(dcfg.RNG_SEED), [j],
+        torch.from_numpy(im)[None].to(DEV), geom, geom[:, 2:],
+        make_pipeline(DEMO_NOISE, mode='TEST'), bucket))
+    del model[:]
+    got = res['images'][j]
+    matched, total = _match_dets(
+        [_dets(boxes, scores, mask, 0, 0)],
+        [_dets(got['boxes'][None], got['scores'][None], got['mask'][None], 0,
+               0)])
+    if total == 0 or matched / total < 0.95:
+        raise AssertionError(f'cli.demo image {j}: {matched}/{total} '
+                             f'detections match detect_chunk')
+    n = len(DEMO_SHAPES)
+    per_image = [a + b for a, b in zip(noise_s, detect_s)]
+    (load_s,) = load
+    out['cli.demo'] = dict(images=n, wall_s=wall, img_per_s=n / wall,
+                           load_params_s=load_s, image_s=per_image,
+                           sheet=list(shape),
+                           portrait_matched=[matched, total],
+                           launches=launches, held=demo_held)
+    shapes = ', '.join(f'{h}x{w}' for h, w in DEMO_SHAPES)
+    buckets = sorted({derive_bucket(cli_demo.TARGET_SIZE, cli_demo.MAX_SIZE,
+                                    h > w) for h, w in DEMO_SHAPES})
+    log(f'cli.demo res101 over {n} images ({shapes}; scale {s:g}, buckets '
+        f'{buckets}), {DEMO_NOISE}: main() {wall:.2f} s ({n / wall:.2f} '
+        f'img/s: config, init, weights, images and sheet included), of '
+        f'which load_params {load_s:.2f} s and each image\'s noise + '
+        f'detection ' + ', '.join(f'{t:.3f}' for t in per_image)
+        + f' s (the rest {wall - load_s - sum(per_image):.2f} s); sheet '
+        f'{shape}; portrait image {matched}/{total} detections match '
+        f'detect_chunk; launches {json.dumps(launches)}  [{card}]')
+    return out
+
+
+def cli_profiled(card: str, inp: dict) -> dict:
+    """cli.demo again, under --profile: after the profiled chunks, since a
+    profiler session slows what runs after it.  The sheet and a trace
+    file must exist, the launches as without the profiler.  Times the
+    whole main(), the profiler's start (entering `trace`), the block it
+    profiles and its stop + Chrome-trace export apart."""
+    import glob
+    import os.path as osp
+
+    from tpudenoise_torch.cli import demo as cli_demo
+    from tpudenoise_torch.utils import profiling
+
+    trace_dir = osp.join(inp['root'], 'demo_trace')
+    sheet = osp.join(inp['root'], 'demo_profiled.ppm')
+    marks = []
+
+    def timed_trace(trace):
+        @contextlib.contextmanager
+        def call(logdir):
+            marks.append(time.perf_counter())
+            with trace(logdir):
+                marks.append(time.perf_counter())
+                yield
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            marks.append(time.perf_counter())
+        return call
+
+    with patched(profiling, 'trace', timed_trace):
+        res, wall, counts, _ = run_cli(
+            cli_demo.main, demo_argv(inp, sheet) + ['--profile', trace_dir])
+    path = 'cli.demo --profile'
+    launches = check_demo_launches(counts, path)
+    shape = check_sheet(res, sheet, path)
+    traces = glob.glob(osp.join(trace_dir, '*.json'))
+    if not traces or not os.path.getsize(traces[0]):
+        raise AssertionError(f'{path} wrote no trace in {trace_dir}')
+    start, block, export = np.diff(marks)
+    n = len(DEMO_SHAPES)
+    log(f'{path} res101 over {n} images, {DEMO_NOISE}: main() {wall:.2f} s '
+        f'({n / wall:.2f} img/s), of which the profiler\'s start '
+        f'{start:.2f} s, the profiled images {block:.2f} s, its stop and '
+        f'Chrome-trace export {export:.2f} s ({os.path.getsize(traces[0])} '
+        f'bytes); sheet {shape}, trace {osp.basename(traces[0])}; launches '
+        f'{json.dumps(launches)}  [{card}]')
+    return {path: dict(images=n, wall_s=wall, img_per_s=n / wall,
+                       profiler_start_s=start, profiled_s=block,
+                       profiler_export_s=export,
+                       trace_bytes=os.path.getsize(traces[0]),
+                       sheet=list(shape), launches=launches)}
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -1111,7 +1530,9 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
     chunk, then 2 chunks (images 24-39) under torch.profiler.  Reports per
     chunk the wall time (the profiler's own cost included), the device
     kernel time, the device's idle share of the wall time, the port's own
-    kernels' time and the largest kernels by device time."""
+    kernels' time and the largest kernels by device time, and the time the
+    profiler took to start (the first session in a process sets up
+    CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
     model, params, raw, geom, infos, key = inputs
     out = {}
@@ -1125,6 +1546,7 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
 
         chunk(2)
         torch.cuda.synchronize()
+        t_in = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1147,12 +1569,14 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
         own = sum(t for t, _ in own_by.values())
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         out[name] = dict(
+            profiler_start_s=t0 - t_in,
             wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
             own_kernels_ms=own, own_by_kernel=own_by,
             kernel_names=len(kern),
             top=[(e.key[:90], e.self_device_time_total / 2e3, e.count // 2)
                  for e in top])
-        log(f'profile {name}: chunk {wall:.2f} ms, device {busy:.2f} ms, '
+        log(f'profile {name}: profiler start {t0 - t_in:.2f} s; chunk '
+            f'{wall:.2f} ms, device {busy:.2f} ms, '
             f'idle {1.0 - busy / wall:.1%}, port kernels {own:.3f} ms; top '
             f'(name, ms/chunk, calls): '
             + '; '.join(f'{k} {t:.3f} x{c}' for k, t, c in out[name]['top'])
@@ -1194,8 +1618,11 @@ def main() -> int:
     e2e.update(main_path(res, card, RES_NOISES, 'res101 '))
     e2e[PROFILE_PATH] = profiling_path(dev, card)
     loop = dataset_loop(card)
+    cli = cli_inputs()
+    e2e.update(cli_phase(card, cli))
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
+    e2e.update(cli_profiled(card, cli))
     # the kernels' device times (`later`): only now, after every timed
     # chunk
     def resolve(d):

@@ -777,3 +777,40 @@ def test_res50_chunk_forward_card_matches_cpu(dev):
     assert (diff <= 2**-5 * scale).all(), (diff / scale).max()
     for g, w in zip(got['rois'].cpu(), want['rois']):
         assert ((g[:, None] - w[None]).abs().amax(-1).amin(0) < 0.1).all()
+
+
+def test_cli_test_on_the_card(dev, tmp_path):
+    """`tpudenoise_torch.cli.test.main` with `--device cuda` on a 2-image
+    600x1000 numpy rrData dataset (its `.npy` pixels where `get_imdb`
+    looks): a seeded vgg16, sap_median_var0.4, one chunk of 2; kernel 1
+    launches once and kernel 3 and the walk twice each (the RPN's NMS and
+    the postprocess NMS); 10 finite APs."""
+    import copy
+
+    import tpudenoise_torch.core.config as config
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.data import synthetic
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    from tpudenoise_torch.noise import fused_kernels as fk
+    from tpudenoise_torch.ops import nms
+    root = str(tmp_path)
+    cfg = config.default_config()
+    cfg.ROOT_DIR = root
+    synthetic.write_rrdata(root, 2, (600, 1000), seed=3, pixel_dir=(
+        default_pixel_dir('rrData_2021_test', cfg)))
+    saved = copy.deepcopy(config.cfg)
+    for counter in (fk.launches, nms.launches):
+        for k in counter:
+            counter[k] = 0
+    try:
+        aps = cli_test.main(['--net', 'vgg16', '--imdb', 'rrData_2021_test',
+                             '--noise', 'sap_median_var0.4', '--eval-batch',
+                             '2', '--device', 'cuda', '--set', 'DATA_DIR',
+                             root, 'ROOT_DIR', root])
+    finally:
+        config.cfg.clear()
+        config.cfg.update(saved)
+    assert len(aps) == 10 and np.isfinite(aps).all(), aps
+    assert fk.launches['sap_median'] == 1, dict(fk.launches)
+    assert nms.launches['suppression_masks'] == 2, dict(nms.launches)
+    assert nms.launches['greedy_keep'] == 2, dict(nms.launches)

@@ -3,7 +3,10 @@
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib`,
 `flax` and `tpudenoise` (and their submodules), imports every module of
 `tpudenoise_torch` and loads `chip_smoke.py` with importlib.  Without a
-GPU, `chip_smoke.py` exits non-zero and prints no result line."""
+GPU, `chip_smoke.py` exits non-zero and prints no result line.  The
+config, its cfg reader and the CLIs also import, apply the repo's cfg
+files and answer `--help` with yaml, cv2 and PIL refused as well (the
+GPU machine has none of them)."""
 
 import os
 import os.path as osp
@@ -64,7 +67,14 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.data.cache_pixels',
             'tpudenoise_torch.data.synthetic',
             'tpudenoise_torch.eval.voc_eval',
-            'tpudenoise_torch.utils.image_io'} <= names
+            'tpudenoise_torch.utils.image_io',
+            'tpudenoise_torch.utils.cfg_reader',
+            'tpudenoise_torch.utils.logging',
+            'tpudenoise_torch.utils.timer',
+            'tpudenoise_torch.utils.profiling',
+            'tpudenoise_torch.data.factory',
+            'tpudenoise_torch.cli.test',
+            'tpudenoise_torch.cli.demo'} <= names
 
 
 def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
@@ -111,6 +121,47 @@ def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
     res = _run(code)
     assert res.returncode == 0, res.stderr[-3000:]
     assert 'LOOP OK []' in res.stdout, res.stdout[-2000:]
+
+
+def test_config_and_clis_run_without_yaml_cv2_or_pil():
+    """With jax, flax, `tpudenoise`, yaml, cv2 and PIL refused: the config
+    applies every cfg file of experiments/cfgs and a `--set` list, and
+    `python -m tpudenoise_torch.cli.test --help` and `cli.demo --help`
+    (run through runpy under the refusing finder) exit 0."""
+    refused = REFUSED + ('yaml', 'cv2', 'PIL')
+    code = textwrap.dedent(f'''
+        import glob, importlib.abc, runpy, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split('.')[0] in {refused!r}:
+                    raise ImportError('refused: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        from tpudenoise_torch.core.config import (cfg_from_file,
+                                                  cfg_from_list,
+                                                  default_config)
+        from tpudenoise_torch.cli import demo, test
+        from tpudenoise_torch.data import factory
+        files = sorted(glob.glob('experiments/cfgs/*.yml'))
+        for path in files:
+            c = cfg_from_file(path, into=default_config())
+        cfg_from_list(['TEST.SCALES', '[120]', 'EXP_DIR', 'x'], into=c)
+        assert c.TEST.SCALES == (120,) and c.ANCHOR_SCALES == [8, 16, 32]
+        for name in ('tpudenoise_torch.cli.test', 'tpudenoise_torch.cli.demo'):
+            sys.argv = [name, '--help']
+            try:
+                runpy.run_module(name, run_name='__main__')
+            except SystemExit as e:
+                assert e.code in (0, None), e.code
+        bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
+        print('CLI OK', len(files), bad)
+    ''')
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'CLI OK 6 []' in res.stdout, res.stdout[-2000:]
+    assert '--eval-batch' in res.stdout and '--conf' in res.stdout
 
 
 def test_chip_smoke_refuses_without_a_gpu():

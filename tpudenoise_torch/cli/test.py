@@ -1,0 +1,149 @@
+"""Test/eval CLI on the GPU (counterpart of `tpudenoise/cli/test.py`): the
+same flags and defaults, a `.npz` of weights, and the eval harness.
+
+    python -m tpudenoise_torch.cli.test --net res101 \\
+        --cfg experiments/cfgs/res101.yml --imdb rrData_2021_test \\
+        --model weights.npz --noise sap_median_var0.4 --eval-batch 8 \\
+        [--device cuda|cpu] [--profile DIR] [--set KEY VALUE ...]
+
+`--device cuda` (the default) needs a CUDA GPU and never falls back to the
+CPU.  Weights come as a `.npz` in the shared layout (written by
+`tpudenoise.models.convert.save_params_npz` on a host with JAX, or by
+`tpudenoise_torch.models.convert.save_params_npz`); a backbone-only file
+is merged over the seeded init.  On a machine without cv2, the dataset's
+pixels come from `python -m tpudenoise_torch.data.cache_pixels`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pprint
+
+import numpy as np
+
+NETS = ['vgg16', 'res50', 'res101', 'res152', 'mobile']
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description='Test a Faster R-CNN network '
+                                            '(PyTorch/CUDA port)')
+    p.add_argument('--cfg', dest='cfg_file', default=None,
+                   help='cfg file (the YAML subset of '
+                        'tpudenoise_torch.utils.cfg_reader)')
+    p.add_argument('--model', default=None,
+                   help='.npz weights (random if unset; orbax snapshots '
+                        'must be converted to .npz on a host with JAX)')
+    p.add_argument('--imdb', dest='imdb_name', default='voc_2007_test')
+    p.add_argument('--comp', dest='comp_mode', action='store_true')
+    p.add_argument('--num_dets', dest='max_per_image', type=int,
+                   default=100)
+    p.add_argument('--tag', default='')
+    p.add_argument('--net', default='res50', choices=NETS)
+    p.add_argument('--noise', default='original')
+    p.add_argument('--strict-ref', action='store_true',
+                   help='reproduce the reference test-path quirks')
+    p.add_argument('--compute-id', action='store_true',
+                   help='TwoNN intrinsic dimension (not ported: ROADMAP '
+                        'Queue 1 item 14)')
+    p.add_argument('--profile', default=None, metavar='DIR',
+                   help='write a torch.profiler Chrome trace of the eval '
+                        'into DIR')
+    p.add_argument('--fast-rng', action='store_true',
+                   help='counter-hash draws (not ported: Queue 1 item 8)')
+    p.add_argument('--host-prep', action='store_true',
+                   help='host cv2 prep (not ported: Queue 1 item 6B)')
+    p.add_argument('--eval-batch', type=int, default=1,
+                   help='images a chunk; 1 runs the batched harness one '
+                        'image a chunk with device prep')
+    p.add_argument('--distributed', action='store_true',
+                   help='multi-host eval (not ported: Queue 1 item 16)')
+    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
+                   help='where the eval runs (default cuda; no fallback)')
+    p.add_argument('--set', dest='set_cfgs', nargs=argparse.REMAINDER,
+                   default=None)
+    return p.parse_args(argv)
+
+
+def resolve_device(name: str):
+    """torch.device(name); exits non-zero, naming the GPU, when name is
+    'cuda' and torch sees none."""
+    import torch
+    if name == 'cuda' and not torch.cuda.is_available():
+        raise SystemExit('--device cuda: torch sees no CUDA GPU here; the '
+                         'CLI does not fall back to the CPU (pass --device '
+                         'cpu to run there)')
+    return torch.device(name)
+
+
+def load_params(model, model_path, net, generator, image_shape=(608, 1024)):
+    """The seeded init, with the `.npz` at model_path merged over it."""
+    params = model.init(generator, image_shape=image_shape)
+    if not model_path:
+        print('WARNING: no --model given; evaluating random weights')
+        return params, 'random'
+    from tpudenoise_torch.models.convert import (load_pretrained,
+                                                 merge_pretrained)
+    return merge_pretrained(params, load_pretrained(model_path, net)), \
+        model_path
+
+
+def refuse_unported(args):
+    for flag, what, item in (
+            ('distributed', '--distributed (multi-device eval)', '16'),
+            ('compute_id', '--compute-id (the TwoNN probes)', '14'),
+            ('fast_rng', '--fast-rng', '8'),
+            ('host_prep', '--host-prep (cv2 resize on the host)', '6B')):
+        if getattr(args, flag, False):
+            raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
+                                      f'Queue 1 item {item})')
+    if args.net == 'mobile':
+        raise NotImplementedError('--net mobile: backbones/mobilenet.py is '
+                                  'not ported yet (ROADMAP Queue 1 item 15)')
+
+
+def main(argv=None):
+    """Runs the eval; returns the APs."""
+    args = parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    import torch
+    from tpudenoise_torch.core.config import cfg, cfg_from_file, cfg_from_list
+    from tpudenoise_torch.data.factory import get_imdb
+    from tpudenoise_torch.eval.harness import test_net_batched
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    from tpudenoise_torch.utils.profiling import trace
+
+    if args.cfg_file:
+        cfg_from_file(args.cfg_file)
+    if args.set_cfgs:
+        cfg_from_list(args.set_cfgs)
+    print('Using config:')
+    pprint.pprint(cfg)
+    np.random.seed(cfg.RNG_SEED)
+
+    imdb_obj = get_imdb(args.imdb_name)
+    imdb_obj.competition_mode(args.comp_mode)
+
+    model = FasterRCNN(backbone=args.net,
+                       num_classes=imdb_obj.num_classes,
+                       anchor_scales=tuple(cfg.ANCHOR_SCALES),
+                       anchor_ratios=tuple(cfg.ANCHOR_RATIOS), cfg=cfg)
+    params, tag = load_params(model, args.model, args.net,
+                              torch.Generator().manual_seed(cfg.RNG_SEED))
+    model.to(device)
+    params = {k: v.to(device) for k, v in params.items()}
+    weights_name = (args.tag or tag or 'default').replace('/', '_')
+    if args.eval_batch == 1:
+        print('--eval-batch 1: the batched harness one image a chunk, with '
+              'device prep (the JAX package runs test_net, which preps on '
+              'the host with cv2; the two differ only by the resize\'s '
+              'float tail, nothing at scale 1)')
+    with trace(args.profile):
+        return test_net_batched(model, params, imdb_obj, weights_name,
+                                args.noise, eval_batch=args.eval_batch,
+                                max_per_image=args.max_per_image, config=cfg,
+                                strict_ref=args.strict_ref)
+
+
+if __name__ == '__main__':
+    main()

@@ -2,6 +2,8 @@
 
     python -m tpudenoise_torch.data.cache_pixels [--image-set test]
         [--year 2021] [--data-dir DIR] [--out DIR]
+    python -m tpudenoise_torch.data.cache_pixels --images [a.jpg ...]
+        [--out DIR]
 
 Each image of the rrData image set goes through `cv2.imread` (the reader
 of the reference's loop) into `<out>/<index>.npy`, (H, W, 3) uint8 BGR;
@@ -9,11 +11,16 @@ of the reference's loop) into `<out>/<index>.npy`, (H, W, 3) uint8 BGR;
 which git ignores and a copy of the working tree keeps.  Then
 `rrData(..., pixel_dir=<out>)` makes the dataset loop read those files on
 a machine without cv2 or PIL, pixel for pixel what the reference reads.
+
+With --images, the given files (default `data/demo/*.jpg`) are decoded
+into `<out>/<stem>.npy`, `<out>` defaulting to `build/pixels/demo`, where
+`python -m tpudenoise_torch.cli.demo` looks first.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import os.path as osp
 
@@ -27,6 +34,21 @@ from tpudenoise_torch.utils.image_io import read_bgr
 def default_pixel_dir(imdb_name: str, config=None) -> str:
     return osp.join((config or default_config()).ROOT_DIR, 'build',
                     'pixels', imdb_name)
+
+
+def demo_pixel_dir(config=None) -> str:
+    """Where the demo's cached pixels live: build/pixels/demo."""
+    return default_pixel_dir('demo', config)
+
+
+def cache_images(paths, out_dir: str) -> int:
+    """Write each image file as out_dir/<stem>.npy; returns the number
+    written."""
+    os.makedirs(out_dir, exist_ok=True)
+    for path in paths:
+        stem = osp.splitext(osp.basename(path))[0]
+        np.save(osp.join(out_dir, stem + '.npy'), read_bgr(path))
+    return len(paths)
 
 
 def cache(imdb_obj, out_dir: str) -> int:
@@ -46,8 +68,17 @@ def main(argv=None) -> int:
     ap.add_argument('--data-dir', default=None,
                     help='DATA_DIR (default: the config\'s, ROOT_DIR/data)')
     ap.add_argument('--out', default=None)
+    ap.add_argument('--images', nargs='*', default=None,
+                    help='decode these files instead of a dataset '
+                         '(default with no file: data/demo/*.jpg)')
     args = ap.parse_args(argv)
     cfg = default_config()
+    if args.images is not None:
+        paths = args.images or sorted(glob.glob(
+            osp.join(cfg.ROOT_DIR, 'data', 'demo', '*.jpg')))
+        out = args.out or demo_pixel_dir(cfg)
+        print(f'{cache_images(paths, out)} images cached in {out}')
+        return 0
     if args.data_dir:
         cfg.DATA_DIR = osp.abspath(args.data_dir)
     d = rrData(args.image_set, args.year, config=cfg)

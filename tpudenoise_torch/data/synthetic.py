@@ -16,14 +16,16 @@ import numpy as np
 
 
 def write_rrdata(root: str, n: int, size=(600, 1000), seed: int = 0,
-                 image_set: str = 'test') -> tuple:
-    """Write n images of `size` (h, w) under root (a DATA_DIR).  Returns
-    (pixel_dir, gt): gt maps each index to its boxes, 0-based inclusive
-    (x1, y1, x2, y2)."""
+                 image_set: str = 'test', pixel_dir: str | None = None
+                 ) -> tuple:
+    """Write n images of `size` (h, w) under root (a DATA_DIR), the pixels
+    into pixel_dir (default: root/6thfloorData/6thFloorTest/pixels).
+    Returns (pixel_dir, gt): gt maps each index to its boxes, 0-based
+    inclusive (x1, y1, x2, y2)."""
     rng = np.random.RandomState(seed)
     h, w = size
     base = osp.join(root, '6thfloorData', '6thFloorTest')
-    pdir = osp.join(base, 'pixels')
+    pdir = pixel_dir or osp.join(base, 'pixels')
     adir = osp.join(base, 'Annotations_cvat', '6thFloorTest', 'Annotations')
     sdir = osp.join(base, 'Annotations_cvat', '6thFloorTest', 'ImageSets',
                     'Main')

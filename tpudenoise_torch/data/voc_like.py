@@ -24,6 +24,12 @@ import numpy as np
 from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.eval.voc_eval import voc_eval
 
+# the VOC-21 classes, the demo's default
+VOC_CLASSES = ('__background__', 'aeroplane', 'bicycle', 'bird', 'boat',
+               'bottle', 'bus', 'car', 'cat', 'chair', 'cow',
+               'diningtable', 'dog', 'horse', 'motorbike', 'person',
+               'pottedplant', 'sheep', 'sofa', 'train', 'tvmonitor')
+
 
 class VocStyleDataset:
     """Common VOC-layout dataset (the imdb protocol the harness reads:

@@ -24,6 +24,19 @@ from tpudenoise_torch.ops.nms import NEG_INF, nms_fixpoint
 from tpudenoise_torch.ops.resize import prep_on_device
 from tpudenoise_torch.utils.blob import derive_bucket, rescale_geometry
 from tpudenoise_torch.utils.image_io import image_hw, read_bgr
+from tpudenoise_torch.utils.logging import get_metrics_logger
+from tpudenoise_torch.utils.timer import Timer
+
+
+def _log_det_scores(dets: np.ndarray, image_index: int):
+    """One 'score' scalar summary per confident (>= 0.8) detection,
+    stepped by image index, as the reference writes them during eval; a
+    no-op without a TensorBoard or wandb sink."""
+    logger = get_metrics_logger()
+    if not logger.active_sinks or len(dets) == 0:
+        return
+    for s in dets[dets[:, -1] >= 0.8, -1]:
+        logger.log_scalar_quiet('score', float(s), step=image_index)
 
 
 def set_matmul_precision():
@@ -78,24 +91,19 @@ def limit_per_image(boxes_c, scores_c, mask_c, max_per_image: int):
     return mask_c
 
 
-def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor,
-                 geom: torch.Tensor, infos: torch.Tensor, noise_fn,
-                 bucket: tuple, thresh: float = 0.0,
-                 max_per_image: int = 100, on_stage=None):
-    """One eval chunk, all on the images' device.
+def noise_chunk(key, idx, raw_u8: torch.Tensor, noise_fn) -> torch.Tensor:
+    """detect_chunk's noise stage: one `fold_in` key per image index of
+    idx, then noise_fn's keyed noise over raw_u8 (B, H, W, 3)."""
+    return noise_fn.keyed(prng.fold_in(key, np.asarray(idx)), raw_u8)
 
-    key: (2,) uint32 PRNG key; idx: image indices (one per raw image);
-    raw_u8: (B, H, W, 3) uint8 (or u8-domain f32) BGR frames; geom (B, 5)
-    f32 rows (h0, w0, oh, ow, scale); infos (B, 3) = (oh, ow, scale);
-    noise_fn from `make_pipeline`; bucket the padded (H, W).
-    on_stage(name), when given, is called after each of the stages
-    'noise', 'prep', 'forward' and 'postprocess' has been enqueued.
-    Returns per-class boxes, scores and mask, (B, C-1, max_per_image, ...).
-    """
+
+def detect_noisy(model, params, noisy: torch.Tensor, geom: torch.Tensor,
+                 infos: torch.Tensor, bucket: tuple, thresh: float = 0.0,
+                 max_per_image: int = 100, on_stage=None):
+    """detect_chunk's stages after the noise: device prep of the noisy
+    (B, H, W, 3) frames into bucket, the forward and the per-class NMS.
+    on_stage as in detect_chunk ('prep', 'forward', 'postprocess')."""
     mark = on_stage or (lambda name: None)
-    keys = prng.fold_in(key, np.asarray(idx))
-    noisy = noise_fn.keyed(keys, raw_u8)
-    mark('noise')
     imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
     mark('prep')
     out = model.forward_test(params, imgs, infos)
@@ -106,6 +114,28 @@ def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor,
         max_per_class=max_per_image)
     mark('postprocess')
     return res
+
+
+def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor,
+                 geom: torch.Tensor, infos: torch.Tensor, noise_fn,
+                 bucket: tuple, thresh: float = 0.0,
+                 max_per_image: int = 100, on_stage=None):
+    """One eval chunk, all on the images' device: `noise_chunk`, then
+    `detect_noisy`.
+
+    key: (2,) uint32 PRNG key; idx: image indices (one per raw image);
+    raw_u8: (B, H, W, 3) uint8 (or u8-domain f32) BGR frames; geom (B, 5)
+    f32 rows (h0, w0, oh, ow, scale); infos (B, 3) = (oh, ow, scale);
+    noise_fn from `make_pipeline`; bucket the padded (H, W).
+    on_stage(name), when given, is called after each of the stages
+    'noise', 'prep', 'forward' and 'postprocess' has been enqueued.
+    Returns per-class boxes, scores and mask, (B, C-1, max_per_image, ...).
+    """
+    noisy = noise_chunk(key, idx, raw_u8, noise_fn)
+    if on_stage:
+        on_stage('noise')
+    return detect_noisy(model, params, noisy, geom, infos, bucket, thresh,
+                        max_per_image, on_stage)
 
 
 def _not_ported(what: str, item: str):
@@ -160,11 +190,13 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     geom = torch.tensor([(h0, w0, oh, ow, s)] * eval_batch,
                         dtype=torch.float32, device=device)
 
+    timers = {'im_detect': Timer(), 'misc': Timer()}
     for c0 in range(0, num_images, eval_batch):
         chunk = list(range(c0, min(c0 + eval_batch, num_images)))
         n_real = len(chunk)
         # pad a partial chunk with its last index; those results are dropped
         chunk = chunk + [chunk[-1]] * (eval_batch - n_real)
+        timers['im_detect'].tic()
         raw = torch.from_numpy(np.stack(
             [read_bgr(imdb_obj.image_path_at(i)) for i in chunk])
         ).to(device)
@@ -173,6 +205,9 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
             noise_fn, img_bucket, thresh, max_per_image)
         bx, sc, mk = (boxes_c.cpu().numpy(), scores_c.cpu().numpy(),
                       mask_c.cpu().numpy())
+        timers['im_detect'].toc()
+        timers['misc'].tic()
+        log_scores = get_metrics_logger().active_sinks
         for j, i in enumerate(chunk[:n_real]):
             mkj = limit_per_image(bx[j], sc[j], mk[j], max_per_image)
             for cls in range(1, num_classes):
@@ -180,9 +215,24 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
                 all_boxes[cls][i] = np.hstack(
                     [bx[j][cls - 1][sel],
                      sc[j][cls - 1][sel][:, None]]).astype(np.float32)
-        print(f'im_detect: {c0 + n_real:d}/{num_images:d}')
+                # the summaries take the detections before the cap, as the
+                # reference writes them before its max_per_image cap
+                if log_scores:
+                    _log_det_scores(sc[j][cls - 1][mk[j][cls - 1]][:, None],
+                                    i)
+        timers['misc'].toc()
+        print(f'im_detect: {c0 + n_real:d}/{num_images:d} '
+              f'{timers["im_detect"].average_time:.3f}s/chunk '
+              f'{timers["misc"].average_time:.3f}s')
 
     with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    print(f'Evaluating detections (artifacts in {output_dir})')
+    _finish_eval(output_dir)
     return imdb_obj.evaluate_detections(all_boxes, output_dir)
+
+
+def _finish_eval(output_dir):
+    """After the loop: the evaluation's banner.  The JAX package prints
+    the TwoNN report of the compute_id features first; that arrives with
+    compute_id (Queue 1 item 14), which test_net_batched refuses."""
+    print(f'Evaluating detections (artifacts in {output_dir})')

@@ -1,5 +1,6 @@
-"""JAX parameter trees -> the port's state dict (counterpart of
-`tpudenoise/models/convert.py`).
+"""JAX parameter trees <-> the port's state dict (counterpart of
+`tpudenoise/models/convert.py` and of `_merge_pretrained` in
+`tpudenoise/train/solver.py`).
 
 The tree is {'head', 'rpn', 'tail'} as `FasterRCNN.init` of the JAX
 package returns it (numpy or jax arrays), or as the shared `.npz` layout
@@ -12,10 +13,18 @@ no bias and their BN statistics become buffers.
 
 The `.npz` layout is flat keys 'tree/sub/.../leaf' -> array, as
 `tpudenoise.models.convert.save_params_npz` writes it; `load_params_npz`
-here reads it back without the JAX package.
+here reads it back without the JAX package, and `save_params_npz` here
+writes the port's state dict in the same layout (`to_jax_flat`, the
+inverse of `from_jax_params`), which the JAX package's `load_params_npz`
+reads back into the tree its `init` makes.  `merge_pretrained` overlays
+a partial tree (a backbone-only `.npz`) on the port's init state dict,
+leaf for leaf: a conv or Dense kernel or bias is one weight or bias, and
+a BN's gamma, beta, mean and var are four buffers.
 """
 
 from __future__ import annotations
+
+import os.path as osp
 
 import numpy as np
 import torch
@@ -24,15 +33,8 @@ import torch
 def load_params_npz(path: str) -> dict:
     """The nested {'head', 'rpn', 'tail'} tree of numpy arrays stored in a
     `.npz` of flat 'a/b/.../leaf' keys."""
-    out = {}
     with np.load(path) as data:
-        for key in data.files:
-            parts = key.split('/')
-            d = out
-            for p in parts[:-1]:
-                d = d.setdefault(p, {})
-            d[parts[-1]] = data[key]
-    return out
+        return _unflatten({key: data[key] for key in data.files})
 
 
 def _t(a, transpose=None) -> torch.Tensor:
@@ -95,3 +97,89 @@ def from_jax_params(tree: dict) -> dict:
 def load_npz(path: str) -> dict:
     """A `.npz` written by `tpudenoise.models.convert.save_params_npz`."""
     return from_jax_params(load_params_npz(path))
+
+
+# the state dict's top-level modules -> their path in the JAX tree
+_TREE_PATH = {'head': ('head',), 'rpn': ('rpn',), 'tail': ('tail', 'tail'),
+              'rcnn': ('tail', 'rcnn')}
+# OIHW -> HWIO and (out, in) -> (in, out): inverses of from_jax_params'
+_TO_JAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def to_jax_flat(state_dict: dict) -> dict:
+    """The port's state dict as the flat 'tree/sub/.../leaf' -> f32 numpy
+    arrays of the shared `.npz` layout (the inverse of
+    `from_jax_params`)."""
+    flat = {}
+    for name, t in state_dict.items():
+        top, *mid, leaf = name.split('.')
+        a = t.detach().to('cpu', torch.float32).numpy()
+        if leaf == 'weight':
+            leaf, a = 'kernel', np.transpose(a, _TO_JAX[a.ndim])
+        flat['/'.join(_TREE_PATH[top] + tuple(mid) + (leaf,))] = \
+            np.ascontiguousarray(a)
+    return flat
+
+
+def save_params_npz(state_dict: dict, path: str):
+    """Write the port's state dict as a `.npz` in the shared layout."""
+    np.savez(path, **to_jax_flat(state_dict))
+
+
+def _flatten(tree: dict, prefix: str = '') -> dict:
+    flat = {}
+    for k, v in tree.items():
+        name = f'{prefix}/{k}' if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(_flatten(v, name))
+        else:
+            flat[name] = v
+    return flat
+
+
+def _unflatten(flat: dict) -> dict:
+    out = {}
+    for key, v in flat.items():
+        *parts, leaf = key.split('/')
+        d = out
+        for p in parts:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+def load_pretrained(path: str, net: str) -> dict:
+    """The tree of a pretrained `.npz` (the only format the port reads).
+    An orbax snapshot (`<path>.orbax`) must be converted on a host with
+    JAX first: `tpudenoise.models.convert.save_params_npz` of its
+    params."""
+    if path.endswith('.npz'):
+        return load_params_npz(path)
+    if path.endswith('.orbax') or osp.exists(path + '.orbax'):
+        raise ValueError(
+            f'{path!r} is an orbax snapshot, which the port cannot read (no '
+            f'orbax on the GPU machine): on a host with JAX, write its '
+            f'params with tpudenoise.models.convert.save_params_npz and '
+            f'pass the .npz.')
+    raise ValueError(
+        f'Unsupported weight file {path!r}: convert tf-slim/torch weights '
+        f'to .npz first (tpudenoise.models.convert).')
+
+
+def merge_pretrained(state_dict: dict, tree: dict) -> dict:
+    """Overlay the leaves of a (partial) JAX-layout tree onto an init
+    state dict where their paths match; returns the merged state dict.
+    Prints the JAX package's two lines: the entries that matched no
+    parameter (a converter emitting wrong names would otherwise leave
+    random weights silently), and n/N loaded."""
+    flat = to_jax_flat(state_dict)
+    pre = _flatten(tree)
+    unmatched = sorted((k for k in pre if k not in flat),
+                       key=lambda k: k.split('/'))
+    if unmatched:
+        print(f'WARNING: {len(unmatched)} pretrained entries matched no '
+              f'model parameter and were ignored, e.g. {unmatched[:10]}')
+    n_hit = sum(1 for k in pre if k in flat)
+    print(f'Loaded {n_hit}/{len(flat)} parameters from pretrained weights')
+    return from_jax_params(_unflatten(
+        {k: pre.get(k, v) for k, v in flat.items()}))
