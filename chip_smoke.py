@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's eval chunk on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's eval chunk and training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -81,14 +81,36 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      375x500 and 500x375, kernel 3 and the walk at B = 1 and on the
      two-class postprocess batches); each CLI's wall time and img/s, the
      demo's weight load and per-image times;
+  5b. training (after the CLIs): `cli.trainval.main` in process, as a
+     user calls it, on 16 numpy-written 600x1000 rrData trainval images
+     (`.npy` pixels, flips), bucket (608, 1024), batch 1: a seeded res101
+     (full width and depth) on sap_median_var0.4, 6 iterations with a
+     snapshot every 3, then a second call with --iters 8 that resumes
+     from 6 (the restored state equal to the saved one bit for bit, and
+     iterations 1-8 seeing the keys and batches of an uninterrupted run);
+     vgg16 3 iterations on gaussian_gaus_blur_var0.1 (dropout); one res101
+     step each on bloom and speckle_bilateral_var1.0 (the masked generic
+     and bilateral routes).  Each call: finite losses, kernel 3 and the
+     walk once a step at 12000 -> 2000 boxes, the noise string's kernels
+     and the threefry draws (8 a step, 10 with vgg16's dropout) launched
+     as expected, every launch held to its plain version on its own
+     inputs (threefry normals within 2 ulp, kernel 2 within its bound,
+     the rest bit-exact); kernel 3 and the walk timed at that size.  Step
+     1 with an f32 res101 on the card against the plain versions on the
+     CPU (RPN terms within 1e-3 relative, RoI terms within 2e-2: they
+     depend on the sampled proposals).  The bf16 res101 step timed: 2
+     warm and 5 timed steps split by CUDA events (noise, forward + loss,
+     backward, optimizer), the peak memory, and one step under
+     set_sync_debug_mode('warn') listing where it waits on the device;
   6. where the time goes: two chunks of each string under torch.profiler
      (device kernel time, idle share, the port's own kernels' share, split
      by kernel name with their launches: the threefry draws' device time
      a chunk gets a line of its own), and of the res101 sap chunk; then
      `cli.demo` again under --profile (sheet, trace file and launches as
      without it; the profiler's start, the profiled block and the trace
-     export timed apart); then each kernel's device time on phase 3's
-     inputs.
+     export timed apart); then two training steps under torch.profiler
+     (the step's idle share); then each kernel's device time on phase
+     3's inputs.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
@@ -104,6 +126,7 @@ before that the kernel table as JSON; the last line is {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -1159,10 +1182,11 @@ TAPPED = {'fused_sap_median_batched': (pipeline, 'fused_sap_median_batched',
 
 
 @contextlib.contextmanager
-def taped():
-    """Record each call the enclosed block makes to a TAPPED wrapper:
-    yields name -> [(args, kwargs, output)], the tensors cloned on the
-    card (the inputs before the call)."""
+def taped(tapped=None):
+    """Record each call the enclosed block makes to a TAPPED (or `tapped`)
+    wrapper: yields name -> [(args, kwargs, output)], the tensors cloned
+    on the card (the inputs before the call)."""
+    tapped = TAPPED if tapped is None else tapped
     calls, saved = {}, {}
 
     def tap(name, fn):
@@ -1175,13 +1199,13 @@ def taped():
             return out
         return call
 
-    for name, (mod, attr, _) in TAPPED.items():
+    for name, (mod, attr, _) in tapped.items():
         saved[name] = getattr(mod, attr)
         setattr(mod, attr, tap(name, saved[name]))
     try:
         yield calls
     finally:
-        for name, (mod, attr, _) in TAPPED.items():
+        for name, (mod, attr, _) in tapped.items():
             setattr(mod, attr, saved[name])
 
 
@@ -1245,8 +1269,6 @@ def run_cli(main, argv):
     """main(argv) from the default module-level config, restored after;
     returns main's result, its wall time, the launch counts (zeroed just
     before) and a deep copy of the config it ran with."""
-    import copy
-
     import tpudenoise_torch.core.config as config
     defaults = copy.deepcopy(config.cfg)
     zero_counts()
@@ -1516,6 +1538,474 @@ def cli_profiled(card: str, inp: dict) -> dict:
                        sheet=list(shape), launches=launches)}
 
 
+# ----------------------------------------------------------- training --
+
+TRAIN_IMAGES = 16
+TRAIN_NOISE = 'sap_median_var0.4'
+VGG_TRAIN_NOISE = 'gaussian_gaus_blur_var0.1'
+# one step each through the masked generic route (bloom, kernel 8) and the
+# masked bilateral route (speckle's threefry field, kernel 5 twice)
+MASKED_NOISES = ('bloom', 'speckle_bilateral_var1.0')
+TRAIN_TIMED = 5
+# threefry draws a step: the anchor targets' two uniform fields, the
+# proposal targets' two uniform fields and two randints of two bit fields
+# each, and each vgg16 dropout's field
+TRAIN_DRAWS = {'res101': 8, 'vgg16': 10}
+# the kernels a training step launches for its noise string, a step
+TRAIN_NOISE_LAUNCHES = {
+    TRAIN_NOISE: {'fused_sap_median_batched': 1},
+    VGG_TRAIN_NOISE: {'fused_gaussian_blur': 1},
+    'bloom': {'bloom_batched': 1},
+    'speckle_bilateral_var1.0': {'bilateral_batched': 2, 'threefry_draw': 1}}
+# kernel wrappers the training path launches, beside the CLI phase's
+TRAIN_TAPPED = {**TAPPED,
+                'threefry_draw': (prng, 'threefry_draw',
+                                  prng.threefry_draw_plain),
+                'bloom_batched': (pipeline, 'bloom_batched',
+                                  bloom_apply_scan),
+                'bilateral_batched': (pipeline, 'bilateral_batched',
+                                      bil.bilateral_plain)}
+# step 1's losses on the card (f32) against the CPU's plain versions: the
+# RPN terms do not depend on the sampled proposals; the RoI terms do, and
+# a proposal whose score ties another within rounding could swap places
+# (none has: the RoI terms agreed to 3.9e-5 with TRAIN.USE_GT off)
+TRAIN_RPN_RTOL = 1e-3
+TRAIN_ROI_RTOL = 1e-3
+
+
+def hold_train_to_plain(calls: dict, path: str, card: str) -> dict:
+    """Each recorded launch of a training path against its wrapper's plain
+    version on the same inputs: kernel 2 within its bound (max |diff| 1 on
+    at most 1e-3 of the pixels); the threefry draw's normals within 2 ulp;
+    everything else bit-exact."""
+    held = {}
+    for name, launches in calls.items():
+        plain = TRAIN_TAPPED[name][2]
+        err = 0.0
+        for a, k, got in launches:
+            want = plain(*a, **k)
+            if got.dtype.is_floating_point and name == 'threefry_draw':
+                e = (got.view(torch.int32).long()
+                     - want.to(got.dtype).view(torch.int32).long()).abs()
+                e = e.max().item()
+                ok = e <= (2 if a[2] == 'normal' else 0)
+            elif name == 'fused_gaussian_blur':
+                diff = (got.double() - want.double()).abs()
+                e = diff.max().item()
+                ok = e <= 1 and (diff.amax(-1) > 0).double().mean() <= 1e-3
+            else:
+                e = (got.double() - want.double()).abs().max().item()
+                ok = e == 0
+            if not ok:
+                raise AssertionError(f'{path}: {name} at {tuple(a[0].shape)} '
+                                     f'differs from its plain version '
+                                     f'({e})')
+            err = max(err, e)
+        shapes = sorted({tuple(a[0].shape) for a, _, _ in launches})
+        held[name] = dict(launches=len(launches), shapes=shapes[:4],
+                          max_abs_err=err)
+        log(f'{path}: {name} held to its plain version on its {len(launches)}'
+            f' launches at {shapes[:4]}: max error {err}'
+            + (' (ulps)' if name == 'threefry_draw' else '') + f'  [{card}]')
+    return held
+
+
+def train_inputs() -> dict:
+    """16 numpy-written 600x1000 rrData trainval images under
+    build/chip_smoke_train, their `.npy` pixels where `get_imdb` looks."""
+    import os.path as osp
+    import shutil
+
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    repo = default_config().ROOT_DIR
+    root = osp.join(repo, 'build', 'chip_smoke_train')
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = default_config()
+    cfg.ROOT_DIR = root
+    synthetic.write_rrdata(root, TRAIN_IMAGES, (H, W), seed=21,
+                           image_set='trainval',
+                           pixel_dir=default_pixel_dir('rrData_2021_trainval',
+                                                       cfg))
+    return dict(repo=repo, root=root)
+
+
+def train_argv(inp: dict, net: str, noise: str, iters: int, tag: str
+               ) -> list:
+    import os.path as osp
+    return ['--net', net, '--cfg', osp.join(inp['repo'], 'experiments',
+                                            'cfgs', f'{net}.yml'),
+            '--imdb', 'rrData_2021_trainval', '--imdbval',
+            'rrData_2021_trainval', '--iters', str(iters), '--noise', noise,
+            '--tag', tag, '--set', 'DATA_DIR', inp['root'], 'ROOT_DIR',
+            inp['root'], 'TRAIN.DISPLAY', '1', 'TRAIN.SNAPSHOT_ITERS', '3']
+
+
+@contextlib.contextmanager
+def recording():
+    """Each training iteration's keys and batch (`train_model`'s on_step),
+    and the states `Solver.restore` returns, while the block runs."""
+    from tpudenoise_torch.train import solver as solver_mod
+    seen, restored = [], []
+
+    def on_step(it, key, k_noise, k_step, raw, losses):
+        seen.append(dict(it=it, key=key.tolist(), k_noise=k_noise.tolist(),
+                         k_step=k_step.tolist(),
+                         batch={k: v.copy() for k, v in raw.items()},
+                         losses={k: v.item() for k, v in losses.items()}))
+
+    def train_model(fn):
+        def call(self, max_iters, resume=True, on_step=None):
+            return fn(self, max_iters, resume, on_step=record)
+        return call
+
+    record = on_step
+
+    def restore(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            restored.append(out)
+            return out
+        return call
+
+    with patched(solver_mod.Solver, 'train_model', train_model), \
+            patched(solver_mod.Solver, 'restore', restore):
+        yield seen, restored
+
+
+def check_train_launches(counts: dict, net: str, noise: str, iters: int,
+                         path: str) -> dict:
+    """The step's noise kernels, kernel 3 and the walk once a step (one
+    image a batch) and the threefry draws of the targets (and dropout)."""
+    want = {MASKS: iters, WALK: iters,
+            'threefry_draw': TRAIN_DRAWS[net] * iters}
+    for k, n in TRAIN_NOISE_LAUNCHES[noise].items():
+        want[k] = want.get(k, 0) + n * iters
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f'{path} launches {got}, expected {want}')
+    return got
+
+
+def train_cli(card: str, inp: dict, net: str, noise: str, iters: int,
+              tag: str) -> tuple:
+    """cli.trainval in process, every launch taped and held to its plain
+    version; returns (entry for e2e, the final state, the iterations seen,
+    the states restored, the config it ran with)."""
+    from tpudenoise_torch.cli import trainval
+    path = f'train {net} {noise} --iters {iters}'
+    with taped(TRAIN_TAPPED) as calls, recording() as (seen, restored):
+        state, wall, counts, cfg = run_cli(
+            trainval.main, train_argv(inp, net, noise, iters, tag))
+    launches = check_train_launches(counts, net, noise, len(seen), path)
+    held = hold_train_to_plain(calls, path, card)
+    losses = [s['losses'] for s in seen]
+    if not all(np.isfinite(v) for x in losses for v in x.values()):
+        raise AssertionError(f'{path}: non-finite losses {losses}')
+    log(f'{path}: iterations {[s["it"] for s in seen]} in {wall:.2f} s '
+        f'(main(): config, init, data, steps, snapshots); total_loss '
+        + ', '.join(f'{x["total_loss"]:.4f}' for x in losses)
+        + f'; launches {json.dumps(launches)}  [{card}]')
+    entry = dict(wall_s=wall, iterations=[s['it'] for s in seen],
+                 losses=losses, launches=launches, held=held)
+    return entry, state, seen, restored, cfg, calls
+
+
+def expected_sequence(cfg, iters: int) -> list:
+    """The keys and batches of an uninterrupted run: the solver's key
+    algebra and loader over the same roidb, with no model."""
+    from tpudenoise_torch.data.loader import RoiDataLoader
+    from tpudenoise_torch.data.roidb import combined_roidb, filter_roidb
+    from tpudenoise_torch.utils.blob import derive_bucket
+    imdb, roidb = combined_roidb('rrData_2021_trainval', TRAIN_NOISE, cfg)
+    roidb = filter_roidb(roidb, cfg)
+    loader = RoiDataLoader(roidb, imdb.num_classes, cfg, bucket=derive_bucket(
+        cfg.TRAIN.SCALES[0], cfg.TRAIN.MAX_SIZE))
+    key, out = prng.PRNGKey(cfg.RNG_SEED), []
+    for it in range(1, iters + 1):
+        key, kn, ks = prng.split(key, 3)
+        out.append(dict(it=it, key=key.tolist(), k_noise=kn.tolist(),
+                        k_step=ks.tolist(), batch=loader.forward()))
+    return out
+
+
+def check_resume(first, second, restored, cfg, path: str) -> dict:
+    """The restored state equals the first run's final one bit for bit
+    (params, momentum, step, key), and the iterations of the two runs
+    together see the keys and batches of an uninterrupted run."""
+    state6, seen6 = first
+    (got, key, it), = restored
+    same = (it == len(seen6) and got.step == state6.step
+            and key.tolist() == seen6[-1]['key']
+            and all(torch.equal(got.params[k], state6.params[k])
+                    for k in state6.params)
+            and all(torch.equal(got.momentum[k], state6.momentum[k])
+                    for k in state6.momentum))
+    if not same:
+        raise AssertionError(f'{path}: the restored state differs from the '
+                             f'saved one')
+    seen = seen6 + second
+    want = expected_sequence(cfg, len(seen))
+    for s, w in zip(seen, want):
+        if (s['it'], s['key'], s['k_noise'], s['k_step']) != (
+                w['it'], w['key'], w['k_noise'], w['k_step']) or not all(
+                np.array_equal(s['batch'][k], w['batch'][k])
+                for k in w['batch']):
+            raise AssertionError(f'{path}: iteration {s["it"]} sees another '
+                                 f'key or batch than an uninterrupted run')
+    log(f'{path}: the restored state equals the saved one bit for bit '
+        f'(params, momentum, step {got.step}, key); iterations '
+        f'{[s["it"] for s in seen]} see the keys and batches of an '
+        f'uninterrupted run')
+    return dict(restored_equal=True, sequence_equal=len(seen))
+
+
+def train_setup(cfg, dtype, dev, name: str, init=None):
+    """A res101 solver of the training phase's data on dev, its loader
+    and its state (the seeded init, or `init` moved to dev)."""
+    from tpudenoise_torch.data.loader import RoiDataLoader
+    from tpudenoise_torch.data.roidb import combined_roidb, filter_roidb
+    from tpudenoise_torch.train.solver import Solver
+    imdb, roidb = combined_roidb('rrData_2021_trainval', TRAIN_NOISE, cfg)
+    roidb = filter_roidb(roidb, cfg)
+    out = os.path.join(default_config().ROOT_DIR, 'build',
+                       'chip_smoke_train', name)
+    s = Solver(FasterRCNN('res101', num_classes=2, cfg=cfg, dtype=dtype),
+               imdb, roidb, [], out, out + '_tb', noise=TRAIN_NOISE,
+               config=cfg, device=dev)
+    init = init or s._init_state_fn(torch.Generator().manual_seed(
+        cfg.RNG_SEED), s.bucket)
+    state = init._replace(
+        params={k: v.to(dev) for k, v in init.params.items()},
+        momentum={k: v.to(dev) for k, v in init.momentum.items()})
+    return s, RoiDataLoader(roidb, 2, cfg, bucket=s.bucket), state, init
+
+
+def train_step1(card: str, cfg) -> dict:
+    """Step 1 of the res101 run's data and keys with an f32 res101 (the
+    seeded init) on the card and through the plain versions on the CPU:
+    each loss term within its stated tolerance.  TRAIN.USE_GT puts the gt
+    boxes among the proposals, so that foreground RoIs are sampled and the
+    class-expanded bbox targets and weights and the RoI smooth-L1 are held
+    too (the seeded RPN's proposals, near its 88-512 px anchors, overlap
+    none of the 40-90 x 60-110 px gt boxes by 0.5): loss_box must be
+    non-zero on both sides."""
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.USE_GT = True
+    out = {}
+    init = None
+    for dev in ('cuda', 'cpu'):
+        s, loader, state, init = train_setup(cfg, torch.float32, dev,
+                                             'step1', init)
+        _, kn, ks = prng.split(prng.PRNGKey(cfg.RNG_SEED), 3)
+        t0 = time.perf_counter()
+        batch = s._prep_batch(kn, loader.forward())
+        _, losses = s._step_fn(state, ks, batch, update=dev == 'cuda')
+        out[dev] = {k: v.item() for k, v in losses.items()}
+        out[dev + '_s'] = time.perf_counter() - t0
+    errs = {k: abs(out['cuda'][k] - out['cpu'][k]) / max(abs(out['cpu'][k]),
+                                                         1e-12)
+            for k in out['cpu']}
+    for k, e in errs.items():
+        tol = TRAIN_RPN_RTOL if k.startswith('rpn') else TRAIN_ROI_RTOL
+        if not e <= tol or not np.isfinite(out['cuda'][k]):
+            raise AssertionError(f'train step 1 (f32): {k} card '
+                                 f'{out["cuda"][k]} vs CPU {out["cpu"][k]}')
+    if not (out['cuda']['loss_box'] > 0 and out['cpu']['loss_box'] > 0):
+        raise AssertionError(f'train step 1 (f32, TRAIN.USE_GT): no '
+                             f'foreground RoI, loss_box card '
+                             f'{out["cuda"]["loss_box"]} CPU '
+                             f'{out["cpu"]["loss_box"]}')
+    log('train step 1, res101 f32, TRAIN.USE_GT, card vs CPU plain versions: '
+        + ', '.join(f'{k} {out["cuda"][k]:.9g}/{out["cpu"][k]:.9g} '
+                    f'(rel {errs[k]:.2e})' for k in errs)
+        + f'; bounds: rpn terms {TRAIN_RPN_RTOL}, RoI terms and total '
+        f'{TRAIN_ROI_RTOL}; CPU step {out["cpu_s"]:.1f} s  [{card}]')
+    return dict(card=out['cuda'], cpu=out['cpu'], rel_err=errs)
+
+
+def train_timing(card: str, cfg) -> dict:
+    """The res101 bf16 step at 608x1024, batch 1: 2 warm steps, then
+    TRAIN_TIMED timed ones, each split by CUDA events into noise (the
+    batch's transfer, noise and mean subtraction), forward + losses,
+    backward and optimizer; the peak memory of the timed steps; then one
+    step under set_sync_debug_mode('warn'), listing where the step waits
+    on the device."""
+    import collections
+    import traceback
+    import warnings
+
+    s, loader, state, _ = train_setup(cfg, torch.bfloat16, DEV, 'timed')
+    key = prng.PRNGKey(cfg.RNG_SEED)
+    stages = ('noise', 'forward', 'backward', 'optimizer')
+    rec = []
+
+    def step(state, key, events=None):
+        key, kn, ks = prng.split(key, 3)
+        raw = loader.forward()
+        if events is not None:
+            events[0].record()
+        batch = s._prep_batch(kn, raw)
+        if events is not None:
+            events[1].record()
+        marks = iter(events[2:]) if events is not None else None
+        state, losses = s._step_fn(
+            state, ks, batch,
+            mark=(lambda stage: next(marks).record()) if marks else None)
+        return state, key, losses
+
+    for _ in range(2):
+        state, key, _ = step(state, key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state, key, losses = step(state, key, ev)
+        rec.append(ev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    split = {st: statistics.median(e[i].elapsed_time(e[i + 1]) for e in rec)
+             for i, st in enumerate(stages)}
+    step_ms = statistics.median(e[0].elapsed_time(e[4]) for e in rec)
+    repo = default_config().ROOT_DIR
+    syncs = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # where the port called the op that waited: its innermost frames
+        # in the repo, the caller's caller last
+        # torch's own note that the mode is a prototype is not a sync
+        if 'called a synchronizing' in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if f.filename.startswith(repo)]
+            syncs[' <- '.join(f'{os.path.relpath(f.filename, repo)}:'
+                              f'{f.lineno}' for f in frames[::-1][:3])
+                  or f'{filename}:{lineno}'] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            state, key, losses = step(state, key)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    log(f'train step res101 bf16 608x1024 batch 1 ({TRAIN_NOISE}): median '
+        f'{step_ms:.2f} ms ({1e3 / step_ms:.2f} img/s; host wall '
+        f'{wall:.2f} ms a step), stages (median ms) '
+        + ', '.join(f'{k} {v:.2f}' for k, v in split.items())
+        + f'; peak memory {peak / 2**30:.2f} GiB; one step under '
+        f'set_sync_debug_mode warn: {sum(syncs.values())} synchronizing '
+        f'calls at {dict(syncs)}  [{card}]')
+    return dict(step_ms=step_ms, img_per_s=1e3 / step_ms, host_ms=wall,
+                stages_ms=split, peak_bytes=peak, syncs=dict(syncs),
+                solver=s, state=state, key=key, loader=loader, step=step)
+
+
+def train_nms_rows(calls: dict, rows: list, card: str):
+    """Kernel 3 and the walk at the training RPN's size (1 x 12000 boxes,
+    padded to 12288, max_outputs 2000): the first step's recorded inputs,
+    each timed beside its plain version, with its bound; attached to their
+    kernel rows as train_rpn."""
+    (a, k, words), = calls[MASKS][:1]
+    sboxes, thresh = a[0], a[1]
+    (wa, wk, keep), = calls[WALK][:1]
+    by_name = {r['name']: r for r in rows}
+    by_name[MASKS]['train_rpn'] = dict(
+        shape=list(sboxes.shape),
+        ms=time_ms(lambda: nms.build_suppression_masks_cuda(sboxes, thresh),
+                   20),
+        device_ms=later(lambda: nms.build_suppression_masks_cuda(
+            sboxes, thresh), 20, ('mask_kernel',)),
+        plain_ms=time_ms(lambda: nms.build_suppression_masks(sboxes, thresh),
+                         2, 1),
+        **mask_bound(sboxes, words))
+    by_name[WALK]['train_rpn'] = dict(
+        shape=list(wa[0].shape), max_outputs=wa[2],
+        kept=(keep >= 0).sum().item(),
+        ms=time_ms(lambda: nms.greedy_keep(*wa), 20),
+        device_ms=later(lambda: nms.greedy_keep(*wa), 20,
+                        ('greedy_kernel',)),
+        plain_ms=time_ms(lambda: nms.greedy_keep_plain(*wa), 2, 1),
+        **walk_bound(wa[0], nms.greedy_keep_plain(*wa), wa[2]))
+    for name in (MASKS, WALK):
+        r = by_name[name]['train_rpn']
+        log(f'{name} at the training RPN size {r["shape"]}: kernel '
+            f'{r["ms"]:.3f} ms, plain {r["plain_ms"]:.2f} ms, bound '
+            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})  [{card}]')
+
+
+def train_phase(card: str, rows: list) -> dict:
+    """Training on the card through cli.trainval, as a user calls it:
+    res101 (seeded, full width and depth, rrData's two classes) on the 16
+    600x1000 images, bucket (608, 1024), batch 1, sap_median_var0.4, 6
+    iterations with a snapshot every 3, then a second call with --iters 8
+    that resumes from 6; vgg16 3 iterations on gaussian_gaus_blur_var0.1
+    (dropout); one res101 step each on bloom and speckle_bilateral_var1.0
+    (the masked generic and bilateral routes).  Every call's losses
+    finite, its launches as expected and each launch held to its plain
+    version; the restored state equal to the saved one and the resumed
+    keys and batches those of an uninterrupted run; step 1 on the card
+    (f32) against the CPU; then the timed steps.  Returns the paths (each
+    with its launches), the other results, and the timed solver's state
+    for `train_profiled`."""
+    inp = train_inputs()
+    out, info = {}, {}
+    t0 = time.perf_counter()
+    e, state6, seen6, _, cfg, calls = train_cli(card, inp, 'res101',
+                                                TRAIN_NOISE, 6, 'res101')
+    out['train res101 6'] = e
+    train_nms_rows(calls, rows, card)
+    del calls
+    e, _, seen8, restored, _, calls = train_cli(card, inp, 'res101',
+                                                TRAIN_NOISE, 8, 'res101')
+    del calls
+    e.update(check_resume((state6, seen6), seen8, restored, cfg,
+                          'train res101 resume'))
+    out['train res101 resume to 8'] = e
+    del state6, restored
+    e, *_ = train_cli(card, inp, 'vgg16', VGG_TRAIN_NOISE, 3, 'vgg16')
+    out['train vgg16 3'] = e
+    for noise in MASKED_NOISES:
+        e, *_ = train_cli(card, inp, 'res101', noise, 1, noise)
+        out[f'train res101 {noise}'] = e
+    info['step 1 card vs CPU'] = train_step1(card, cfg)
+    timing_ = train_timing(card, cfg)
+    info['timing'] = {k: v for k, v in timing_.items()
+                      if k not in ('solver', 'state', 'key', 'loader',
+                                   'step')}
+    info['wall_s'] = time.perf_counter() - t0
+    log(f'training phase: {info["wall_s"]:.1f} s of wall time  [{card}]')
+    return out, info, timing_
+
+
+def train_profiled(card: str, timing_: dict) -> dict:
+    """Two more timed steps under torch.profiler: the device's idle share
+    of the step and its busiest kernels (last: a profiler session slows
+    what runs after it)."""
+    from torch.profiler import ProfilerActivity, profile
+    state, key, step = timing_['state'], timing_['key'], timing_['step']
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, key, _ = step(state, key)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == 'CUDA' and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in kern) / 2e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    log(f'profile train step res101: step {wall:.2f} ms, device {busy:.2f} '
+        f'ms, idle {1 - busy / wall:.1%}; top (name, ms/step, calls): '
+        + '; '.join(f'{e.key[:60]} {e.self_device_time_total / 2e3:.3f} '
+                    f'x{e.count // 2}' for e in top) + f'  [{card}]')
+    return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
+                top=[(e.key[:90], e.self_device_time_total / 2e3,
+                      e.count // 2) for e in top])
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -1596,6 +2086,7 @@ def main() -> int:
         print('chip_smoke: no CUDA device; this script runs only on a GPU',
               file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     dev = DEV
     set_matmul_precision()
     card = card_line()
@@ -1620,9 +2111,13 @@ def main() -> int:
     loop = dataset_loop(card)
     cli = cli_inputs()
     e2e.update(cli_phase(card, cli))
+    train_paths, train_info, train_timed = train_phase(card, rows)
+    e2e.update(train_paths)
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
     e2e.update(cli_profiled(card, cli))
+    train_info['profile'] = train_profiled(card, train_timed)
+    del train_timed
     # the kernels' device times (`later`): only now, after every timed
     # chunk
     def resolve(d):
@@ -1644,6 +2139,12 @@ def main() -> int:
             + f", plain {r['plain_ms']:.3f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} main-path launches  [{card}]")
+        if 'train_rpn' in r:
+            t = r['train_rpn']
+            log(f"  {r['name']} at the training RPN size {t['shape']}: "
+                f"kernel {t['ms']:.3f} ms (device {t['device_ms']} ms), "
+                f"plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})  [{card}]")
         for what, t in r.get('modes', {}).items():
             log(f"  {r['name']} {what}: kernel {t['ms']:.4f} ms (device "
                 f"{t['device_ms']} ms), bound {t['bound_ms']:.4f} ms "
@@ -1660,7 +2161,10 @@ def main() -> int:
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
     log(json.dumps({'main_path': e2e, 'dataset_loop': loop,
-                    'profile': prof, 'card': card}))
+                    'profile': prof, 'training': train_info, 'card': card},
+                   default=str))
+    log(f'chip_smoke: {time.perf_counter() - t_main:.1f} s from the start '
+        f'of main() to the result, the build included  [{card}]')
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -93,8 +93,16 @@ def test_bloom_pipeline_keyed_matches_jax(monkeypatch):
                            jnp.asarray(raw, jnp.float32)))
     np.testing.assert_array_equal(
         fn(prng.PRNGKey(8), torch.from_numpy(raw)).numpy(), want1)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fn.masked(keys, torch.from_numpy(raw), None)
+    # the bucketed form: at full extent keyed; on a padded canvas the
+    # JAX package's masked (the flare geometry follows the valid extent)
+    full = np.tile(np.int32([130, 220]), (4, 1))
+    np.testing.assert_array_equal(
+        fn.masked(keys, torch.from_numpy(raw), full).numpy(), want)
+    hw = np.int32([[130, 220], [100, 150], [64, 220], [130, 90]])
+    np.testing.assert_array_equal(
+        fn.masked(keys, torch.from_numpy(raw), hw).numpy(),
+        np.asarray(jfn.masked(jkeys, jnp.asarray(raw, jnp.float32),
+                              jnp.asarray(hw))))
 
 
 def test_bloom_wrapper_rejects_bad_inputs():

@@ -814,3 +814,94 @@ def test_cli_test_on_the_card(dev, tmp_path):
     assert fk.launches['sap_median'] == 1, dict(fk.launches)
     assert nms.launches['suppression_masks'] == 2, dict(nms.launches)
     assert nms.launches['greedy_keep'] == 2, dict(nms.launches)
+
+
+def test_target_layers_card_match_cpu(dev):
+    """The training target layers on the card (threefry kernel draws, the
+    randint bound a device count) equal the CPU's: labels, sampled rois
+    and weights bit for bit; the regression targets within 1e-6 (CUDA's
+    logf and division may round their last ulp another way)."""
+    from tpudenoise_torch.ops.anchors import anchor_grid
+    from tpudenoise_torch.train.targets import (anchor_target_layer,
+                                                proposal_target_layer)
+    rng = np.random.RandomState(0)
+    anchors = anchor_grid(12, 16)
+    gt = torch.zeros(2, 4, 5)
+    gm = torch.zeros(2, 4, dtype=torch.bool)
+    for b in range(2):
+        for j in range(2 + b):
+            x, y = rng.randint(0, 150), rng.randint(0, 100)
+            gt[b, j] = torch.tensor([x, y, x + 60, y + 70, 1.0])
+            gm[b, j] = True
+    hw = torch.tensor([[190., 250.], [170., 230.]])
+    keys = np.array([[1, 2], [3, 4]], np.uint32)
+    rois = gt[:, [0, 1, 0, 1, 0, 1] * 20, :4] + torch.from_numpy(
+        rng.randn(2, 120, 4).astype(np.float32) * 8)
+    mask = torch.ones(2, 120, dtype=torch.bool)
+    outs = []
+    for d in ('cpu', dev):
+        a = anchor_target_layer(keys, anchors.to(d), gt.to(d), gm.to(d),
+                                hw.to(d), rpn_batch=64)
+        p = proposal_target_layer(keys, rois.to(d), mask.to(d), gt.to(d),
+                                  gm.to(d), num_classes=2, batch=32)
+        outs.append([t.cpu() for t in (*a, *p)])
+    names = ('labels', 'bbox_targets', 'in_w', 'out_w', 'rois', 'labels',
+             'bbox_targets', 'in_w', 'out_w')
+    for name, x, y in zip(names, *outs):
+        if name == 'bbox_targets':
+            torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize('noise', ['bloom', 'periodic_var100', 'quant_var7',
+                                   'speckle_bilateral_var1.0'])
+def test_masked_routes_card_match_cpu(dev, noise):
+    """The masked generic and bilateral routes on the card equal the CPU's
+    (quant: its palette's centres may differ by ulps, so labels on a
+    near-tie; held to 1 on 1e-3 of the elements)."""
+    from tpudenoise_torch.noise.pipeline import make_pipeline
+    rng = np.random.RandomState(1)
+    hw = np.array([[31, 47], [40, 50]])
+    imgs = torch.from_numpy(rng.randint(0, 256, (2, 40, 56, 3)).astype(
+        np.uint8))
+    keys = np.array([[5, 6], [7, 8]], np.uint32)
+    fn = make_pipeline(noise, mode='TRAIN')
+    want = fn.masked(keys, imgs, hw)
+    got = fn.masked(keys, imgs.to(dev), hw).cpu()
+    d = (got.double() - want.double()).abs()
+    if noise == 'quant_var7':
+        assert (d > 0).double().mean() <= 1e-3
+    else:
+        assert d.max() == 0
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One f32 res50 train step (128x192, batch 2) on the card against the
+    CPU: each loss term within 1e-3 relative (cuDNN and the CPU sum the
+    convolutions in other orders; a proposal near a score tie can swap)."""
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    from tpudenoise_torch.train.train_step import make_train_step
+    cfg = default_config()
+    model = FasterRCNN('res50', num_classes=2, cfg=cfg,
+                       anchor_scales=(2, 4, 8), dtype=torch.float32)
+    init, step = make_train_step(model, cfg)
+    state = init(torch.Generator().manual_seed(0), (128, 192))
+    rng = np.random.RandomState(2)
+    batch = {'image': torch.from_numpy((rng.rand(2, 128, 192, 3) * 2 - 1)
+                                       .astype(np.float32)),
+             'im_info': torch.tensor([[128., 192., 1.], [110., 170., 1.]]),
+             'gt_boxes': torch.tensor([[[20., 30., 90., 100., 1.]],
+                                       [[10., 10., 70., 90., 1.]]]),
+             'gt_mask': torch.ones(2, 1, dtype=torch.bool)}
+    key = np.array([0, 9], np.uint32)
+    _, want = step(state, key, batch)
+    on = {k: v.to(dev) for k, v in batch.items()}
+    new, got = step(state._replace(
+        params={k: v.to(dev) for k, v in state.params.items()},
+        momentum={k: v.to(dev) for k, v in state.momentum.items()}), key, on)
+    for k in want:
+        w, g = want[k].item(), got[k].item()
+        assert abs(g - w) <= 1e-3 * abs(w) + 1e-6, (k, g, w)
+    assert new.step == 1

@@ -92,8 +92,16 @@ def test_route_matches_jax(noise, shape):
     want1 = np.asarray(jfn(jax.random.PRNGKey(8),
                            jnp.asarray(raw, jnp.float32)))
     _check(noise, want1, fn(prng.PRNGKey(8), torch.from_numpy(raw)).numpy())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fn.masked(keys, torch.from_numpy(raw), None)
+    # the bucketed form at full extent: keyed, but where the reference's
+    # masked differs by design (periodic's step a true division, quant's
+    # fit subsample drawn from the valid region): the JAX package's masked
+    full = np.tile(np.int32(shape[1:]), (shape[0], 1))
+    got_m = fn.masked(keys, torch.from_numpy(raw), full).numpy()
+    if noise in ('periodic_var100', 'quant_var7'):
+        _check(noise, np.asarray(jfn.masked(jkeys, jnp.asarray(
+            raw, jnp.float32), jnp.asarray(full))), got_m)
+    else:
+        np.testing.assert_array_equal(got_m, got)
 
 
 def test_every_single_kind_results_string_builds():

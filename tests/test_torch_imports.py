@@ -74,7 +74,16 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.utils.profiling',
             'tpudenoise_torch.data.factory',
             'tpudenoise_torch.cli.test',
-            'tpudenoise_torch.cli.demo'} <= names
+            'tpudenoise_torch.cli.demo',
+            'tpudenoise_torch.cli.trainval',
+            'tpudenoise_torch.train.targets',
+            'tpudenoise_torch.train.losses',
+            'tpudenoise_torch.train.train_step',
+            'tpudenoise_torch.train.solver',
+            'tpudenoise_torch.data.loader',
+            'tpudenoise_torch.data.roidb',
+            'tpudenoise_torch.data.prefetch',
+            'tpudenoise_torch.data.ds_utils'} <= names
 
 
 def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
@@ -162,6 +171,64 @@ def test_config_and_clis_run_without_yaml_cv2_or_pil():
     assert res.returncode == 0, res.stderr[-3000:]
     assert 'CLI OK 6 []' in res.stdout, res.stdout[-2000:]
     assert '--eval-batch' in res.stdout and '--conf' in res.stdout
+
+
+def test_training_runs_without_cv2_pil_yaml_optax_or_orbax(tmp_path):
+    """With jax, flax, `tpudenoise`, cv2, PIL, yaml, optax and orbax
+    refused (the GPU machine has none of them): the training modules
+    import, `cli.trainval --help` exits 0, and `cli.trainval --device
+    cpu` trains a res50 one iteration on a numpy-written rrData trainval
+    set read from its `.npy` pixels (flips from the `.npy` widths), with
+    the masked noise of the generic route, and writes its snapshot."""
+    refused = REFUSED + ('cv2', 'PIL', 'yaml', 'optax', 'orbax')
+    code = textwrap.dedent(f'''
+        import importlib.abc, os, runpy, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split('.')[0] in {refused!r}:
+                    raise ImportError('refused: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        from tpudenoise_torch.cli import trainval
+        from tpudenoise_torch.core.config import default_config
+        from tpudenoise_torch.data import cache_pixels, synthetic
+        from tpudenoise_torch.train import (losses, solver, targets,
+                                            train_step)
+        from tpudenoise_torch.data import loader, prefetch, roidb
+        sys.argv = ['tpudenoise_torch.cli.trainval', '--help']
+        try:
+            runpy.run_module('tpudenoise_torch.cli.trainval',
+                             run_name='__main__')
+        except SystemExit as e:
+            assert e.code in (0, None), e.code
+        root = {str(tmp_path)!r}
+        cfg = default_config()
+        cfg.ROOT_DIR = root
+        synthetic.write_rrdata(root, 2, size=(90, 120), seed=2,
+                               image_set='trainval',
+                               pixel_dir=cache_pixels.default_pixel_dir(
+                                   'rrData_2021_trainval', cfg))
+        state = trainval.main([
+            '--device', 'cpu', '--net', 'res50', '--imdb',
+            'rrData_2021_trainval', '--imdbval', 'rrData_2021_trainval',
+            '--iters', '1', '--noise', 'periodic_var100', '--tag', 't',
+            '--set', 'DATA_DIR', root, 'ROOT_DIR', root,
+            'TRAIN.SCALES', '[90]', 'TRAIN.MAX_SIZE', '120',
+            'TRAIN.RPN_PRE_NMS_TOP_N', '128', 'TRAIN.RPN_POST_NMS_TOP_N',
+            '32', 'TRAIN.BATCH_SIZE', '8', 'TRAIN.DISPLAY', '1'])
+        assert state.step == 1
+        out = os.path.join(root, 'output', 'default', 'rrData_2021_trainval',
+                           't', 'res101_faster_rcnn_iter_1.pt')
+        assert os.path.exists(out), out
+        bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
+        print('TRAIN OK', bad)
+    ''')
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'TRAIN OK []' in res.stdout, res.stdout[-2000:]
+    assert '--imdbval' in res.stdout
 
 
 def test_chip_smoke_refuses_without_a_gpu():

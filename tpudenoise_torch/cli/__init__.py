@@ -1,2 +1,3 @@
 """Command-line entry points of the port: `python -m
-tpudenoise_torch.cli.test` and `python -m tpudenoise_torch.cli.demo`."""
+tpudenoise_torch.cli.test`, `python -m tpudenoise_torch.cli.demo` and
+`python -m tpudenoise_torch.cli.trainval`."""

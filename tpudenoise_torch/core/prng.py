@@ -15,7 +15,8 @@ matching jax 0.9 with `jax_threefry_partitionable=True` (its default):
   and k-means init; `normal` is `_normal_real`: sqrt(2) * erf_inv of a
   uniform in [nextafter(-1, 0), 1).
 * `draw_bits`, `draw_uniform` and `draw_normal` take the same draws for
-  B keys x N elements on a torch device (the threefry kernel on a GPU).
+  B keys x N elements on a torch device (the threefry kernel on a GPU);
+* `fold_in_path` derives a flax module's rng (the dropout keys).
 
 A key is a `(2,)` uint32 array, as `jax.random.PRNGKey` returns.  Every
 function also takes a batch of keys, (..., 2), and returns one result per
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from tpudenoise_torch import cuda_build
+from tpudenoise_torch.utils.transfer import to_device
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _U32 = np.uint32
@@ -287,8 +289,7 @@ def threefry_draw(keys: torch.Tensor, n: int, mode: str, lo: float = 0.0,
 
 
 def _key_tensor(keys, device) -> torch.Tensor:
-    keys = key_data(keys)
-    return torch.from_numpy(keys.reshape(-1, 2).astype(np.int64)).to(device)
+    return to_device(key_data(keys).reshape(-1, 2).astype(np.int64), device)
 
 
 def draw_bits(keys, n: int, device) -> torch.Tensor:
@@ -325,3 +326,19 @@ def draw_normal(keys, n: int, device, factor=None) -> torch.Tensor:
     `factor`, `normal(key, (n,)) * factor` as XLA folds it."""
     scale = _SQRT2 if factor is None else _SQRT2 * np.float32(factor)
     return draw_erf_inv(keys, n, device, scale)
+
+
+def fold_in_path(key, path) -> np.ndarray:
+    """flax's `_fold_in_static` (its `make_rng` keys): fold the first 4
+    bytes (big-endian) of the SHA-1 of `path` into the key, each str as
+    UTF-8 and each int as its minimal big-endian bytes, with no separator
+    (flax_fix_rng_separator is off).  A dropout layer's key is
+    fold_in_path(rng, (*module path, 1)) for its first draw."""
+    import hashlib
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode('utf-8'))
+        else:
+            m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, 'big'))
+    return fold_in(key, int.from_bytes(m.digest()[:4], 'big'))

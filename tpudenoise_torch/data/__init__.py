@@ -1,1 +1,2 @@
-"""Datasets for evaluation (an eval-only copy of `tpudenoise/data`)."""
+"""Datasets, roidb preparation and the training loader (counterpart of
+`tpudenoise/data`)."""

@@ -1,11 +1,13 @@
-"""VOC-layout datasets for evaluation: the rrData ("person") dataset.
+"""VOC-layout datasets: the rrData ("person") dataset.
 
-An eval-only copy of `tpudenoise/data/voc_like.py` (`VocStyleDataset`,
-`rrData`), which the port may not import: XML annotations, txt image
-sets, per-class VOC results files and the python AP evaluation (rrData
-sweeps IoU 0.50:0.05:0.95, ref rrData.py:246-269).  Left out: the roidb
-and training parts (ROADMAP Queue 1 item 12), the MATLAB bridge and the
-metrics logger; `_do_python_eval` prints the APs.
+A copy of `tpudenoise/data/voc_like.py` (`VocStyleDataset`, `rrData`) and
+of the training half of `tpudenoise/data/imdb.py`, which the port may not
+import: XML annotations, txt image sets, the gt roidb (pickled under
+DATA_DIR/cache), horizontal flips (`append_flipped_images`, widths from
+`utils.image_io.image_hw`), `merge_roidbs`, per-class VOC results files
+and the python AP evaluation (rrData sweeps IoU 0.50:0.05:0.95, ref
+rrData.py:246-269).  Left out: rpn/proposal roidbs, proposal recall, the
+MATLAB bridge and the metrics logger; `_do_python_eval` prints the APs.
 
 `rrData(..., pixel_dir=...)` points `image_path_at` at `.npy` pixels that
 `tpudenoise_torch.data.cache_pixels` decoded from the JPEGs, which the GPU
@@ -18,11 +20,13 @@ import os
 import os.path as osp
 import pickle
 import uuid
+import xml.etree.ElementTree as ET
 
 import numpy as np
 
 from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.eval.voc_eval import voc_eval
+from tpudenoise_torch.utils.image_io import image_hw
 
 # the VOC-21 classes, the demo's default
 VOC_CLASSES = ('__background__', 'aeroplane', 'bicycle', 'bird', 'boat',
@@ -36,7 +40,8 @@ class VocStyleDataset:
     `name`, `num_classes`, `num_images`, `image_path_at`,
     `evaluate_detections`).  Subclasses define paths and classes."""
 
-    def __init__(self, name, image_set, year, classes):
+    def __init__(self, name, image_set, year, classes, config=None):
+        self._cfg = config or default_config()
         self._name = name
         self._classes = list(classes)
         self._year = year
@@ -47,6 +52,8 @@ class VocStyleDataset:
         self.config = {'cleanup': True, 'use_salt': True,
                        'use_diff': False}
         self._image_index = self._load_image_set_index()
+        self._roidb = None
+        self._roidb_handler = self.gt_roidb
 
     # ---- identity ----
     @property
@@ -68,6 +75,99 @@ class VocStyleDataset:
     @property
     def num_images(self):
         return len(self._image_index)
+
+    @property
+    def cache_path(self):
+        path = osp.join(self._cfg.DATA_DIR, 'cache')
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    # ---- roidb ----
+    def set_proposal_method(self, method: str):
+        if method != 'gt':
+            raise NotImplementedError(
+                f'proposal method {method!r}: only the gt roidb is ported')
+        self._roidb_handler = self.gt_roidb
+
+    @property
+    def roidb(self):
+        if self._roidb is None:
+            self._roidb = self._roidb_handler()
+        return self._roidb
+
+    def gt_roidb(self):
+        """Each image's annotation as a roidb entry, cached as a pickle in
+        DATA_DIR/cache (the JAX package's file name and layout)."""
+        cache_file = osp.join(self.cache_path, self.name + '_gt_roidb.pkl')
+        if osp.exists(cache_file):
+            with open(cache_file, 'rb') as f:
+                return pickle.load(f)
+        roidb = [self._load_annotation(i) for i in self.image_index]
+        with open(cache_file, 'wb') as f:
+            pickle.dump(roidb, f, pickle.HIGHEST_PROTOCOL)
+        return roidb
+
+    def _load_annotation(self, index):
+        """VOC XML -> roidb entry with 0-based boxes."""
+        tree = ET.parse(self._anno_path(index))
+        objs = tree.findall('object')
+        if not self.config['use_diff']:
+            objs = [o for o in objs
+                    if o.find('difficult') is None
+                    or int(o.find('difficult').text) == 0]
+        num = len(objs)
+        boxes = np.zeros((num, 4), dtype=np.uint16)
+        gt_classes = np.zeros((num,), dtype=np.int32)
+        overlaps = np.zeros((num, self.num_classes), dtype=np.float32)
+        seg_areas = np.zeros((num,), dtype=np.float32)
+        cls_map = {c: i for i, c in enumerate(self.classes)}
+        for ix, obj in enumerate(objs):
+            bb = obj.find('bndbox')
+            x1 = float(bb.find('xmin').text) - 1
+            y1 = float(bb.find('ymin').text) - 1
+            x2 = float(bb.find('xmax').text) - 1
+            y2 = float(bb.find('ymax').text) - 1
+            cls = cls_map[obj.find('name').text.lower().strip()]
+            boxes[ix] = [x1, y1, x2, y2]
+            gt_classes[ix] = cls
+            overlaps[ix, cls] = 1.0
+            seg_areas[ix] = (x2 - x1 + 1) * (y2 - y1 + 1)
+        return {'boxes': boxes, 'gt_classes': gt_classes,
+                'gt_overlaps': overlaps, 'flipped': False,
+                'seg_areas': seg_areas}
+
+    def append_flipped_images(self):
+        """Append a horizontally flipped copy of every entry and double
+        the image index."""
+        num_images = self.num_images
+        widths = [image_hw(self.image_path_at(i))[1]
+                  for i in range(num_images)]
+        for i in range(num_images):
+            boxes = self.roidb[i]['boxes'].copy()
+            oldx1 = boxes[:, 0].copy()
+            oldx2 = boxes[:, 2].copy()
+            boxes[:, 0] = widths[i] - oldx2 - 1
+            boxes[:, 2] = widths[i] - oldx1 - 1
+            assert (boxes[:, 2] >= boxes[:, 0]).all()
+            self.roidb.append({'boxes': boxes,
+                               'gt_overlaps': self.roidb[i]['gt_overlaps'],
+                               'gt_classes': self.roidb[i]['gt_classes'],
+                               'seg_areas': self.roidb[i]['seg_areas'],
+                               'flipped': True})
+        self._image_index = self._image_index * 2
+
+    @staticmethod
+    def merge_roidbs(a, b):
+        assert len(a) == len(b)
+        for i in range(len(a)):
+            a[i]['boxes'] = np.vstack((a[i]['boxes'], b[i]['boxes']))
+            a[i]['gt_classes'] = np.hstack((a[i]['gt_classes'],
+                                            b[i]['gt_classes']))
+            a[i]['gt_overlaps'] = np.vstack((a[i]['gt_overlaps'],
+                                             b[i]['gt_overlaps']))
+            a[i]['seg_areas'] = np.hstack((a[i]['seg_areas'],
+                                           b[i]['seg_areas']))
+        return a
 
     # ---- path schema and AP rules (defined per dataset) ----
     def _image_dir(self):
@@ -185,7 +285,7 @@ class rrData(VocStyleDataset):
         self._pixel_dir = pixel_dir
         name = f'rrData_{year}_{image_set}' + ('_diff' if use_diff else '')
         super().__init__(name, image_set, year,
-                         ('__background__', 'person'))
+                         ('__background__', 'person'), config)
         if pixel_dir is not None:
             self._image_ext = '.npy'
 

@@ -4,8 +4,9 @@ max-pool, blocks 1-3 with block3 at stride 1, 1024 channels) and the RoI
 tail (block4 at stride 1, then the mean over H and W: (R, 2048)).
 
 NCHW modules in channels-last memory, as `vgg.py`.  Convs have no bias;
-BN is frozen (a loaded affine).  Parameters are f32 and cast to the compute
-dtype at use.
+BN is frozen (a loaded affine, held in buffers).  Parameters are f32 and
+cast to the compute dtype at use.  `frozen_param_filter` gives the
+training freeze boundaries (RESNET.FIXED_BLOCKS and FREEZE_ROOT).
 """
 
 from __future__ import annotations
@@ -153,3 +154,21 @@ class ResNetTail(nn.Module):
     def forward(self, rois: torch.Tensor) -> torch.Tensor:
         x = self.block4(rois.to(self.dtype).permute(0, 3, 1, 2))
         return x.float().mean(dim=(2, 3)).to(self.dtype)
+
+
+def frozen_param_filter(num_fixed_blocks: int = 1, freeze_root: bool = True):
+    """A predicate over a head parameter's path below 'head': BN frozen
+    everywhere (in the port its statistics are buffers, never trained),
+    the root conv when freeze_root, and the first num_fixed_blocks
+    blocks."""
+    fixed_blocks = {f'block{i + 1}' for i in range(num_fixed_blocks)}
+
+    def is_frozen(path) -> bool:
+        parts = [str(p) for p in path]
+        if any('bn' in p for p in parts):
+            return True
+        if freeze_root and parts and parts[0] in ('conv1', 'conv1_bn'):
+            return True
+        return bool(parts) and parts[0] in fixed_blocks
+
+    return is_frozen

@@ -1,6 +1,8 @@
 """VGG16 backbone (counterpart of `tpudenoise/models/backbones/vgg.py`):
 13 convs with 2x2 SAME max-pools after stages 1-4 (stride 16, 512
-channels), and the fc6/fc7 4096 tail over 7x7x512 pooled RoIs."""
+channels), and the fc6/fc7 4096 tail over 7x7x512 pooled RoIs, with
+dropout 0.5 after each in training.  conv1_* and conv2_* are frozen
+(`frozen_param_filter`)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudenoise_torch.core import prng
 from tpudenoise_torch.models.rpn import conv, dense
 
 STAGES = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
@@ -68,7 +71,42 @@ class VGG16Tail(nn.Module):
             lecun_normal_(layer.weight, layer.in_features, generator)
             nn.init.zeros_(layer.bias)
 
-    def forward(self, rois: torch.Tensor) -> torch.Tensor:
+    def forward(self, rois: torch.Tensor, dropout_keys=None) -> torch.Tensor:
+        """rois (B*R, 7, 7, 512), image-major.  With dropout_keys (one
+        (2,) key per image, (B, 2)), training mode: dropout after fc6 and
+        fc7."""
         x = rois.to(self.dtype).reshape(rois.shape[0], -1)
         x = F.relu(dense(x, self.fc6, self.dtype))
-        return F.relu(dense(x, self.fc7, self.dtype))
+        if dropout_keys is not None:
+            x = dropout(x, dropout_keys, 'Dropout_0')
+        x = F.relu(dense(x, self.fc7, self.dtype))
+        if dropout_keys is not None:
+            x = dropout(x, dropout_keys, 'Dropout_1')
+        return x
+
+
+KEEP = 0.5      # the tail's Dropout(0.5)
+
+
+def dropout(x: torch.Tensor, keys, name: str) -> torch.Tensor:
+    """flax's `Dropout(0.5)` in training mode over (B*R, F) rows, image
+    by image: the keep mask is `uniform < KEEP` drawn (threefry kernel on
+    a GPU) from the layer's flax rng, flax's fold of the module path
+    ('tail', name) and the draw count 1 into each image's key, over that
+    image's R*F elements; kept values are x / KEEP in x's dtype, the
+    rest 0."""
+    keys = prng.key_data(keys).reshape(-1, 2)
+    u = prng.draw_uniform(prng.fold_in_path(keys, ('tail', name, 1)),
+                          x.numel() // keys.shape[0], x.device)
+    return torch.where((u < KEEP).reshape(x.shape), x / KEEP, 0.0)
+
+
+def frozen_param_filter():
+    """conv1_* and conv2_* frozen: a predicate over a head parameter's
+    path below 'head' (module names, then the leaf)."""
+
+    def is_frozen(path) -> bool:
+        return bool(path) and (path[0].startswith('conv1_')
+                               or path[0].startswith('conv2_'))
+
+    return is_frozen

@@ -1,6 +1,8 @@
-"""Faster R-CNN test-time forward, batched (counterpart of
-`tpudenoise/models/faster_rcnn.py`): backbone -> RPN -> proposals (packed
-NMS kernel) -> crop_and_resize (+ max-pool) -> tail -> heads.
+"""Faster R-CNN, batched (counterpart of `tpudenoise/models/faster_rcnn.py`):
+backbone -> RPN -> proposals (packed NMS kernel) -> crop_and_resize (+
+max-pool) -> tail -> heads.  `forward_test` is inference;
+`forward_train` adds the target layers (`train/targets.py`), dropout in
+the vgg16 tail and the four losses (`train/losses.py`).
 
 Images arrive NHWC (B, H, W, 3) f32, BGR, mean-subtracted and padded to a
 bucket, with the true extent in im_info (B, 3) = (h, w, scale).  Inside,
@@ -10,9 +12,11 @@ features so that the fc6 flatten keeps the JAX package's HWC order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
+from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import AttrDict, default_config
 from tpudenoise_torch.models.backbones import resnet, vgg
 from tpudenoise_torch.models.rpn import RCNNHead, RPNHead, rpn_softmax_scores
@@ -21,8 +25,23 @@ from tpudenoise_torch.ops.proposal import proposal_layer, proposal_top_layer
 from tpudenoise_torch.ops.roi_align import (crop_and_resize,
                                             max_pool_2x2_same,
                                             roi_boxes_to_normalized)
+from tpudenoise_torch.train.losses import detection_losses
+from tpudenoise_torch.train.targets import (anchor_target_layer,
+                                            proposal_target_layer)
 
 FEAT_STRIDE = 16
+
+
+class _Losses(nn.Module):
+    """`FasterRCNN._losses` as a module's forward, for
+    `torch.func.functional_call`, which calls only a module's forward."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.m = model
+
+    def forward(self, *args):
+        return self.m._losses(*args)
 
 
 class FasterRCNN(nn.Module):
@@ -53,6 +72,7 @@ class FasterRCNN(nn.Module):
                 self.pool_size, 512, dtype)
             feat_c, fc_c = 512, 4096
             self.pool_then_max = True       # crop 14 -> max-pool 7
+            self.frozen_filter = vgg.frozen_param_filter()
         else:
             n = int(backbone[3:])
             head, tail = resnet.ResNetHead(n, dtype), resnet.ResNetTail(
@@ -60,6 +80,9 @@ class FasterRCNN(nn.Module):
             feat_c, fc_c = 1024, 2048
             # RESNET.MAX_POOL False: a direct 7x7 crop
             self.pool_then_max = bool(self.cfg.RESNET.MAX_POOL)
+            self.frozen_filter = resnet.frozen_param_filter(
+                self.cfg.RESNET.FIXED_BLOCKS,
+                freeze_root=bool(self.cfg.RESNET.get('FREEZE_ROOT', True)))
         self.head = head
         self.rpn = RPNHead(self.num_anchors, self.cfg.RPN_CHANNELS, feat_c,
                            dtype)
@@ -77,8 +100,15 @@ class FasterRCNN(nn.Module):
             m.reset_parameters(generator)
         return self.state_dict()
 
-    def forward(self, images: torch.Tensor, im_info: torch.Tensor) -> dict:
-        C = self.cfg
+    def frozen(self, name: str) -> bool:
+        """Whether the trainable parameter `name` (a state-dict key) stays
+        fixed in training: the backbone's boundaries, in the head only."""
+        top, *path = name.split('.')
+        return top == 'head' and self.frozen_filter(path)
+
+    def _rpn(self, images: torch.Tensor):
+        """feat (B, C, fh, fw), RPN logits (B, fh, fw, 2A), scores (B, K),
+        deltas (B, K, 4) and anchors (K, 4)."""
         b = images.shape[0]
         feat = self.head(images.permute(0, 3, 1, 2))            # NCHW
         rpn_cls, rpn_bbox = self.rpn(feat)
@@ -87,6 +117,31 @@ class FasterRCNN(nn.Module):
         deltas = rpn_bbox.reshape(b, -1, 4)
         anchors = anchor_grid(fh, fw, FEAT_STRIDE, self.anchor_scales,
                               self.anchor_ratios, device=images.device)
+        return feat, rpn_cls, scores, deltas, anchors
+
+    def _pool(self, feat: torch.Tensor, rois: torch.Tensor,
+              dropout_keys=None):
+        """RoI pooling, tail and heads over (B, R, 4) image-space rois:
+        cls_score and bbox_pred (B * R, .)."""
+        b = feat.shape[0]
+        fh, fw = feat.shape[2], feat.shape[3]
+        feat_nhwc = feat.permute(0, 2, 3, 1)
+        norm = roi_boxes_to_normalized(rois, (fh, fw), FEAT_STRIDE)
+        if self.pool_then_max:
+            crops = max_pool_2x2_same(
+                crop_and_resize(feat_nhwc, norm, self.pool_size * 2))
+        else:
+            crops = crop_and_resize(feat_nhwc, norm, self.pool_size)
+        crops = crops.reshape(b * rois.shape[1], *crops.shape[2:])
+        if dropout_keys is None:
+            return self.rcnn(self.tail(crops))
+        return self.rcnn(self.tail(crops, dropout_keys))
+
+    def forward(self, images: torch.Tensor, im_info: torch.Tensor) -> dict:
+        """Inference."""
+        C = self.cfg
+        b = images.shape[0]
+        feat, _, scores, deltas, anchors = self._rpn(images)
         im_hw = im_info[:, :2].to(torch.float32)
         if C.TEST.MODE == 'top':
             rois, roi_scores, mask = proposal_top_layer(
@@ -95,16 +150,8 @@ class FasterRCNN(nn.Module):
             rois, roi_scores, mask = proposal_layer(
                 scores, deltas, anchors, im_hw, C.TEST.RPN_NMS_THRESH,
                 C.TEST.RPN_PRE_NMS_TOP_N, C.TEST.RPN_POST_NMS_TOP_N)
-        feat_nhwc = feat.permute(0, 2, 3, 1)
-        norm = roi_boxes_to_normalized(rois, (fh, fw), FEAT_STRIDE)
-        if self.pool_then_max:
-            crops = max_pool_2x2_same(
-                crop_and_resize(feat_nhwc, norm, self.pool_size * 2))
-        else:
-            crops = crop_and_resize(feat_nhwc, norm, self.pool_size)
         r = rois.shape[1]
-        cls_score, bbox_pred = self.rcnn(self.tail(crops.reshape(
-            b * r, *crops.shape[2:])))
+        cls_score, bbox_pred = self._pool(feat, rois)
         cls_score = cls_score.reshape(b, r, -1)
         stds = torch.tensor(C.TRAIN.BBOX_NORMALIZE_STDS, dtype=torch.float32,
                             device=images.device).repeat(self.num_classes)
@@ -120,6 +167,64 @@ class FasterRCNN(nn.Module):
                 # as f32 (jnp.mean of bf16 sums in f32 and rounds)
                 'feat_pooled': feat.float().mean(dim=(2, 3)).to(
                     feat.dtype).float()}
+
+    def _losses(self, images, im_info, k_at, k_pt, k_do, gt_boxes, gt_mask):
+        """The per-batch mean of the training losses (`forward_train`)."""
+        T = self.cfg.TRAIN
+        b = images.shape[0]
+        feat, rpn_cls, scores, deltas, anchors = self._rpn(images)
+        im_hw = im_info[:, :2].to(torch.float32)
+        # no gradient crosses the proposals: the target layer detaches
+        # its sampled rois, and nothing else reads them
+        with torch.no_grad():
+            rois, _, mask = proposal_layer(
+                scores, deltas, anchors, im_hw, T.RPN_NMS_THRESH,
+                T.RPN_PRE_NMS_TOP_N, T.RPN_POST_NMS_TOP_N)
+            at = anchor_target_layer(
+                k_at, anchors, gt_boxes, gt_mask, im_hw,
+                rpn_batch=T.RPN_BATCHSIZE, fg_fraction=T.RPN_FG_FRACTION,
+                pos_thresh=T.RPN_POSITIVE_OVERLAP,
+                neg_thresh=T.RPN_NEGATIVE_OVERLAP,
+                clobber_positives=bool(T.RPN_CLOBBER_POSITIVES))
+            pt = proposal_target_layer(
+                k_pt, rois, mask, gt_boxes, gt_mask, self.num_classes,
+                batch=T.BATCH_SIZE, fg_fraction=T.FG_FRACTION,
+                fg_thresh=T.FG_THRESH, bg_hi=T.BG_THRESH_HI,
+                bg_lo=T.BG_THRESH_LO,
+                bbox_normalize_stds=tuple(T.BBOX_NORMALIZE_STDS),
+                bbox_normalize_means=tuple(T.BBOX_NORMALIZE_MEANS),
+                use_gt=bool(T.USE_GT))
+        cls_score, bbox_pred = self._pool(
+            feat, pt.rois, k_do if self.backbone == 'vgg16' else None)
+        s = pt.rois.shape[1]
+        # the per-anchor (neg, pos) logit pairs in anchor-grid order
+        a = self.num_anchors
+        rpn_logits = torch.stack([rpn_cls[..., :a].reshape(b, -1),
+                                  rpn_cls[..., a:].reshape(b, -1)], dim=-1)
+        losses = detection_losses(
+            rpn_logits, at.labels, deltas, at.bbox_targets,
+            at.bbox_inside_weights, at.bbox_outside_weights,
+            cls_score.reshape(b, s, -1), pt.labels,
+            bbox_pred.reshape(b, s, -1), pt.bbox_targets,
+            pt.bbox_inside_weights, pt.bbox_outside_weights)
+        return {k: v.mean() for k, v in losses.items()}
+
+    def forward_train(self, params, key, images: torch.Tensor,
+                      im_info: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_mask: torch.Tensor) -> dict:
+        """The training forward with `params` (a state dict whose trainable
+        tensors may require grad) over a batch: images (B, H, W, 3)
+        preprocessed, im_info (B, 3), gt_boxes (B, G, 5) padded (x1, y1,
+        x2, y2, class), gt_mask (B, G).  Image i takes key i of
+        split(key, B) and splits it into its anchor-target, proposal-target
+        and dropout keys, as the JAX step's vmap does.  Returns the four
+        losses and total_loss, each the mean over the batch (no weight
+        decay: the train step adds it)."""
+        keys = prng.split(key, images.shape[0])                 # (B, 2)
+        k_at, k_pt, k_do = np.moveaxis(prng.split(keys, 3), 1, 0)
+        return torch.func.functional_call(
+            _Losses(self), {'m.' + k: v for k, v in params.items()},
+            (images, im_info, k_at, k_pt, k_do, gt_boxes, gt_mask))
 
     @torch.no_grad()
     def forward_test(self, params, images: torch.Tensor,

@@ -4,7 +4,8 @@
   wrap mod 256) and cv2's saturate_cast (round half-even, clamp).
 * `u8_unique_count`: the distinct u8 values of an image (skimage's
   poisson quantizer), on the image's device.
-* `bloom_params`: the (48, 8) sun-flare compositing steps per key, drawn in numpy
+* `bloom_params`: the (48, 8) sun-flare compositing steps per key (with
+  `hw`, per image valid extents of a padded canvas), drawn in numpy
   from the threefry port (`core.prng`) with the float32 arithmetic of the
   reference, so the values are bit-equal.
 * `bloom_apply_scan`: the 48-step compositing over a batch, the plain
@@ -12,7 +13,9 @@
 * the threefry generators of the single-kind route: `to_unit`,
   `gaussian`, `salt_and_pepper`, `speckle`, `uniform_add`, `gamma_add`,
   `rayleigh_add`, `poisson`, `brownian`, `periodic` and `shader`,
-  batched over images with one key each.
+  batched over images with one key each; `brownian` and `periodic` take
+  `hw`, each image's valid (h, w) on a bucket-padded canvas (host ints,
+  so no shape or loop waits on the device).
 """
 
 from __future__ import annotations
@@ -63,20 +66,32 @@ def _linspace32(start: float, stop: float, num: int) -> np.ndarray:
     return np.append(prng._fma32(i, f32(stop) * rcp, lo), f32(stop))
 
 
-def bloom_params(key, h: int, w: int) -> np.ndarray:
+def bloom_params(key, h: int, w: int, hw=None) -> np.ndarray:
     """(..., 48, 8) float32 rows (cx, cy, r^2, b, g, r, alpha, 0) of the
     Automold sun flare at flare centre (100, 100), angle -pi/4, for one
     key (2,) or a batch (..., 2): 8 random circles on the mirrored flare
-    line, then 40 source rings."""
+    line, then 40 source rings.
+
+    hw: with a batch of keys (B, 2), per image the valid (h, w) of a
+    bucket-padded (h, w) canvas (host ints): the flare line's drawn
+    position and the circle radii follow the valid extent."""
+    if hw is not None:
+        keys = prng.key_data(key).reshape(-1, 2)
+        return np.stack([_bloom_params(k, w, vh, vw) for k, (vh, vw)
+                         in zip(keys, _hw_rows(hw, keys.shape[0]))])
+    return _bloom_params(key, w, h, w)
+
+
+def _bloom_params(key, w: int, vh: int, vw: int) -> np.ndarray:
     f32 = np.float32
     fc = f32(100.0)
     angle = (-math.pi / 4) % (2 * math.pi)
     n_line = (w + 9) // 10
     line_x = np.arange(n_line, dtype=f32) * f32(10.0)
     line_y = f32(200.0) - (f32(math.tan(angle)) * (line_x - fc) + fc)
-    rad_hi = max(h // 100 - 2, 1)
+    rad_hi = max(vh // 100 - 2, 1)
     k = prng.split(prng.split(key, N_CIRC), 4)          # (..., 8, 4, 2)
-    r_idx = prng.randint(k[..., 1, :], (), 0, n_line)
+    r_idx = prng.randint(k[..., 1, :], (), 0, (vw + 9) // 10)
     rad = prng.randint(k[..., 2, :], (), 1, rad_hi + 1).astype(f32)
     r3 = rad * (rad * rad)
     circ = np.zeros(k.shape[:-2] + (8,), f32)
@@ -238,32 +253,72 @@ def brownian_path(z: torch.Tensor) -> torch.Tensor:
     return off[:, None] + excl
 
 
-def brownian(keys, img_u8: torch.Tensor, dt: float) -> torch.Tensor:
+def _hw_rows(hw, b: int):
+    """(B, 2) host ints, one valid (h, w) per image, or None."""
+    if hw is None:
+        return None
+    if isinstance(hw, torch.Tensor) and hw.device.type != 'cpu':
+        raise TypeError('hw must be on the host (a device tensor would '
+                        'make the noise wait on the device)')
+    hw = np.asarray(hw, np.int64).reshape(-1, 2)
+    if hw.shape[0] != b:
+        raise ValueError('one valid (h, w) per image')
+    return [(int(h), int(w)) for h, w in hw]
+
+
+def brownian(keys, img_u8: torch.Tensor, dt: float, hw=None) -> torch.Tensor:
     """A Brownian path over each image's element raster: the exclusive
     prefix of sqrt(dt) * N(0, 1), times 255, wrap-cast to u8, then a
     saturating add.  The prefix runs in the fixed log-step order of
     `brownian_path`, which the mix kernel's brownian shares (the
-    reference's cumsum sums in XLA's own order)."""
+    reference's cumsum sums in XLA's own order).
+
+    hw: per image the valid (h, w) of a bucket-padded canvas (host
+    ints); the increments at padded positions are zeroed before the
+    prefix, so each valid element's path is the prefix over the valid
+    raster."""
     b, h, w, _ = img_u8.shape
     db = prng.draw_normal(keys, _n(img_u8), img_u8.device,
-                          np.sqrt(np.float32(dt)))
-    path = torch.stack([brownian_path(d.reshape(h, 3 * w)) for d in db])
+                          np.sqrt(np.float32(dt))).reshape(b, h, 3 * w)
+    for i, (vh, vw) in enumerate(_hw_rows(hw, b) or ()):
+        db[i, vh:] = 0.0
+        db[i, :, 3 * vw:] = 0.0
+    path = torch.stack([brownian_path(d) for d in db])
     return saturate_u8(img_u8 + wrap_cast_u8(path.reshape(img_u8.shape)
                                              * 255.0))
 
 
-def periodic(img_u8: torch.Tensor, amplitude: float) -> torch.Tensor:
+def periodic(img_u8: torch.Tensor, amplitude: float, hw=None
+             ) -> torch.Tensor:
     """sin over linspace(-A, A, n) of the element raster, times 255,
     wrap-cast, saturating add; amplitude < 0 means A = n.  XLA turns the
     step's division by the constant n - 1 into a multiply by its f32
-    reciprocal and contracts -A + i * step."""
-    n = _n(img_u8)
+    reciprocal and contracts -A + i * step.
+
+    hw: per image the valid (h, w) of a bucket-padded canvas (host
+    ints): the raster index, n and A follow the valid region (the step
+    is then a true f32 division: n is data to the reference's
+    program)."""
+    b, h, w, _ = img_u8.shape
     f32 = np.float32
-    a = f32(n if amplitude < 0 else amplitude)
-    step = float((f32(2.0) * a) * (f32(1.0) / f32(n - 1)))
-    i = torch.arange(n, dtype=torch.float32, device=img_u8.device)
-    t = prng._fma_t(i, step, float(-a))
-    noise = wrap_cast_u8(torch.sin(t) * 255.0).reshape(img_u8.shape[1:])
+    dev = img_u8.device
+    if hw is None:
+        n = _n(img_u8)
+        a = f32(n if amplitude < 0 else amplitude)
+        step = float((f32(2.0) * a) * (f32(1.0) / f32(n - 1)))
+        i = torch.arange(n, dtype=torch.float32, device=dev)
+        t = prng._fma_t(i, step, float(-a))
+        noise = wrap_cast_u8(torch.sin(t) * 255.0).reshape(img_u8.shape[1:])
+        return saturate_u8(img_u8 + noise)
+    noise = torch.empty(img_u8.shape, dtype=torch.float32, device=dev)
+    x3 = torch.arange(3 * w, device=dev)
+    for k, (vh, vw) in enumerate(_hw_rows(hw, b)):
+        n = vh * vw * 3
+        a = f32(n if amplitude < 0 else amplitude)
+        step = float((f32(2.0) * a) / (f32(n) - f32(1.0)))
+        idx = torch.arange(h, device=dev)[:, None] * (3 * vw) + x3
+        t = prng._fma_t(idx.to(torch.float32), step, float(-a))
+        noise[k] = wrap_cast_u8(torch.sin(t) * 255.0).reshape(h, w, 3)
     return saturate_u8(img_u8 + noise)
 
 

@@ -30,12 +30,15 @@ _ITERS = 15
 _LLOYD = 3
 
 
-def fit_draws(key, n: int, k: int = K_PAD):
+def fit_draws(key, n: int, k: int = K_PAD, fit_idx=None):
     """Host draws of a fit of k centres and of its fit subsample for an
     image of n pixels: (fit_idx (S,) int32 or None, first (int), gumbel
     (k - 1, S) float32).  The draws for k centres are the first ones of
-    the draws for more."""
-    if n > FIT_SET:
+    the draws for more.  A given fit_idx is the subsample, and no draw is
+    taken for it."""
+    if fit_idx is not None:
+        s = len(fit_idx)
+    elif n > FIT_SET:
         key, sub = prng.split(key)
         fit_idx = prng.randint(sub, (FIT_SET,), 0, n)
         s = FIT_SET
@@ -113,13 +116,14 @@ def kmeans_fit_traced_k(points: torch.Tensor, kk: int, first: int,
     return centers, active
 
 
-def kmeans(key, points: torch.Tensor, k: int):
+def kmeans(key, points: torch.Tensor, k: int, fit_idx=None):
     """The reference's static-k `kmeans` (iters 15, fit subsample 8192):
     points (N, 3) float32 -> (centers (k, 3), labels (N,)).  The fit is
     `kmeans_fit_traced_k` with kk = k (the reference's two fits share
-    their stream), then every point goes to its nearest centre."""
+    their stream), then every point goes to its nearest centre.  fit_idx:
+    a given fit subsample (its `sample_idx`)."""
     n = points.shape[0]
-    fit_idx, first, gumbel = fit_draws(key, n, k)
+    fit_idx, first, gumbel = fit_draws(key, n, k, fit_idx)
     fit = points
     if fit_idx is not None:
         fit = points[torch.from_numpy(fit_idx.astype(np.int64)).to(
@@ -133,14 +137,28 @@ def kmeans(key, points: torch.Tensor, k: int):
     return centers, _assign(points, x2, centers, active)
 
 
-def quantize_colors(keys, img_u8: torch.Tensor, k: int) -> torch.Tensor:
+def quantize_colors(keys, img_u8: torch.Tensor, k: int, hw=None
+                    ) -> torch.Tensor:
     """The quant noise over (B, H, W, 3) u8-domain images, one key each:
     BGR -> u8 LAB, a k-means palette of the LAB pixels, centres truncated
-    to u8, every pixel mapped to its centre's BGR."""
+    to u8, every pixel mapped to its centre's BGR.
+
+    hw: per image the valid (h, w) of a bucket-padded canvas (host
+    ints): the palette fits on FIT_SET pixels drawn from the valid region
+    (randint rows and columns from split(key, 3)'s second and third
+    keys, the fit on the first); every pixel is still mapped."""
     out = torch.empty_like(img_u8, dtype=torch.float32)
+    w = img_u8.shape[2]
     for i, im in enumerate(img_u8):
         pts = bgr_u8_to_lab_u8(im.reshape(-1, 3).to(torch.float32))
-        centers, labels = kmeans(keys[i], pts, k)
+        if hw is None:
+            centers, labels = kmeans(keys[i], pts, k)
+        else:
+            key, ky, kx = prng.split(keys[i], 3)
+            vh, vw = (int(v) for v in hw[i])
+            fit_idx = (prng.randint(ky, (FIT_SET,), 0, vh) * w
+                       + prng.randint(kx, (FIT_SET,), 0, vw))
+            centers, labels = kmeans(key, pts, k, fit_idx)
         bgr = lab_u8_to_bgr_u8(torch.trunc(torch.clamp(centers, 0.0, 255.0)))
         out[i] = bgr[labels].reshape(im.shape)
     return out

@@ -16,16 +16,24 @@ Ported routes (the reference's `use_pallas=True` routes):
   (`_pallas_bilateral_pipeline`, `pipeline.py:393-436`).
 Seeds and key algebra come from the numpy threefry port (`core.prng`),
 and the generators' fields from its device draws, so the draws equal the
-reference's.  Wavelet and curvelet denoising, `masked` on the per-image
-routes, `fast_rng` and the XLA mix scan raise NotImplementedError naming
-their ROADMAP items; nothing falls back to another route.
+reference's.  Wavelet and curvelet denoising (ROADMAP Queue 1 items 10
+and 13), `fast_rng` (item 8) and the XLA mix scan with the mixes'
+`masked` (item 9) raise NotImplementedError naming their items; nothing
+falls back to another route.
 
 The returned callable `fn(key, images)` takes a (2,) uint32 key and
 (B, H, W, 3) uint8 or float32 u8-domain images on any device and returns
 float32; `fn.keyed(keys, images)` takes one key per image ((B, 2)) and
-`fn.backend` names the route.  `fn.masked(keys, images, hw)` is `keyed`
-for the sap and gaussian routes (stencils with no dependence on the
-valid extent); the other routes do not port it yet.
+`fn.backend` names the route.  `fn.masked(keys, images, hw)` is the
+bucketed form (the training batches of `train/solver.py`): images
+edge-padded to a bucket with each one's valid (h, w) in hw, host ints.
+The sap and gaussian routes' masked is `keyed` (noise and stencils with
+no dependence on the valid extent); the generic and bilateral routes
+pass hw to the generators whose raster depends on it (brownian,
+periodic, quant, bloom; `pipeline.py:570-629, 423-430`), and their 3x3
+stencils and bilateral passes run over the whole canvas.  The mix
+routes' masked (the XLA mix scan) raises NotImplementedError naming
+ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from tpudenoise_torch.noise.mix_kernels import (fused_mix_bilateral,
 from tpudenoise_torch.noise.mix_prologue import mix_prologue, plan_tables
 from tpudenoise_torch.noise.spec import (GAUSSIAN_RANDOM_LEVELS, Denoise,
                                          Kind, NoisePlan, NoiseSpec, parse)
+from tpudenoise_torch.utils.transfer import to_device
 
 _SEED_MAX = 2**31 - 1
 
@@ -68,8 +77,7 @@ class _Pipeline:
 
     def _apply(self, images, args):
         dev = images.device
-        args = [torch.as_tensor(a, device=dev) if a is not None else None
-                for a in args]
+        args = [to_device(a, dev) if a is not None else None for a in args]
         return self._run(_to_u8(images), *args).to(torch.float32)
 
     def __call__(self, key, images: torch.Tensor) -> torch.Tensor:
@@ -127,7 +135,8 @@ class _PerImagePipeline:
 
     def __init__(self, backend: str, apply):
         self.backend = backend
-        self._apply = apply    # ((B, 2) uint32 keys, images) -> images
+        # ((B, 2) uint32 keys, images, hw=None) -> images
+        self._apply = apply
 
     def __call__(self, key, images: torch.Tensor) -> torch.Tensor:
         return self._apply(prng.split(key, images.shape[0]), images)
@@ -139,10 +148,22 @@ class _PerImagePipeline:
         return self._apply(prng.split(keys, 1)[:, 0], images)
 
     def masked(self, keys, images: torch.Tensor, hw) -> torch.Tensor:
+        """keyed, with hw the (B, 2) valid (h, w) per image (host)."""
+        keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+        if keys.shape[0] != images.shape[0]:
+            raise ValueError('one key per image')
+        return self._apply(prng.split(keys, 1)[:, 0], images,
+                           G._hw_rows(hw, images.shape[0]))
+
+
+class _MixPipeline(_PerImagePipeline):
+    """The fused mix routes, whose bucketed form is the XLA mix scan."""
+
+    def masked(self, keys, images: torch.Tensor, hw) -> torch.Tensor:
         raise NotImplementedError(
-            f'{self.backend}: the bucketed (masked) noise path, whose '
-            f'generators follow each image\'s valid extent, is not ported '
-            f'yet (ROADMAP Queue 1 items 6 and 9)')
+            f'{self.backend}: the bucketed (masked) form of a mixed plan '
+            f'goes through the XLA mix scan, which is not ported (ROADMAP '
+            f'Queue 1 item 9)')
 
 
 _POST_ITEM = {Denoise.WAVELET: 'Queue 1 item 10',
@@ -169,9 +190,11 @@ _FILTERS = {
 }
 
 
-def _noisy(spec: NoiseSpec, keys, img: torch.Tensor):
+def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None):
     """The generator of one spec over (B, H, W, 3) float32 u8-domain
-    images, one key each: (noisy images, 'unit' or 'u8' domain)."""
+    images, one key each: (noisy images, 'unit' or 'u8' domain).  hw:
+    per image valid (h, w) host ints, for the generators whose raster
+    depends on it (the elementwise ones need none)."""
     kind, lvl = spec.kind, spec.level
     if kind == Kind.GAUSSIAN:
         if spec.is_random_level:
@@ -195,13 +218,13 @@ def _noisy(spec: NoiseSpec, keys, img: torch.Tensor):
     if kind == Kind.RAYLEIGH:
         return G.rayleigh_add(keys, img, lvl), 'unit'
     if kind == Kind.BROWNIAN:
-        return G.brownian(keys, img, lvl), 'u8'
+        return G.brownian(keys, img, lvl, hw), 'u8'
     if kind == Kind.PERIODIC:
-        return G.periodic(img, lvl), 'u8'
+        return G.periodic(img, lvl, hw), 'u8'
     if kind == Kind.QUANT:
-        return quantize_colors(keys, img, int(lvl)), 'u8'
+        return quantize_colors(keys, img, int(lvl), hw), 'u8'
     if kind == Kind.BLOOM:
-        params = bloom_params(keys, img.shape[1], img.shape[2])
+        params = bloom_params(keys, img.shape[1], img.shape[2], hw)
         return bloom_batched(img, torch.from_numpy(params).to(
             img.device)), 'u8'
     if kind == Kind.SHADER:
@@ -209,11 +232,13 @@ def _noisy(spec: NoiseSpec, keys, img: torch.Tensor):
     return img, 'u8'                                    # ORIGINAL
 
 
-def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor) -> torch.Tensor:
+def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
+               hw=None) -> torch.Tensor:
     """One (kind, level, denoise) combination over (B, H, W, 3) float32
-    u8-domain images with one key each ((B, 2) uint32).  Returns u8-domain
-    float32, or the [0, 1] floats of plain gaussian (a reference quirk)."""
-    noisy, dom = _noisy(spec, keys, images)
+    u8-domain images with one key each ((B, 2) uint32), hw as `_noisy`.
+    Returns u8-domain float32, or the [0, 1] floats of plain gaussian (a
+    reference quirk)."""
+    noisy, dom = _noisy(spec, keys, images, hw)
     u8 = G.wrap_cast_u8(255.0 * noisy) if dom == 'unit' else noisy
     d = spec.denoise
     if d == Denoise.NONE:
@@ -236,12 +261,13 @@ def apply_post(denoise: Denoise, images: torch.Tensor,
     return _FILTERS[denoise](images, not unit_float)
 
 
-def _apply_specs_batched(specs, keys, images: torch.Tensor) -> torch.Tensor:
+def _apply_specs_batched(specs, keys, images: torch.Tensor,
+                         hw=None) -> torch.Tensor:
     """Per-image spec application over a batch: one spec for every image.
     A mix table runs on the fused kernels instead."""
     if len(specs) != 1:
         raise NotImplementedError(_MIX_SCAN)
-    return apply_spec(specs[0], keys, images)
+    return apply_spec(specs[0], keys, images, hw)
 
 
 def _post_batched_for(plan: NoisePlan, unit_float: bool):
@@ -266,7 +292,7 @@ def _mix_pipeline(plan: NoisePlan) -> _PerImagePipeline:
         out = run(_to_u8(images), *args, kinds)
         return out if post is None else post(out)
 
-    return _PerImagePipeline(
+    return _MixPipeline(
         'cuda:fused_mix' + ('+bilateral' if bilateral else ''), apply)
 
 
@@ -277,9 +303,9 @@ def _bilateral_pipeline(spec: NoiseSpec, n_stages: int) -> _PerImagePipeline:
     stripped = (dataclasses.replace(spec, denoise=Denoise.NONE)
                 if spec.denoise == Denoise.BILATERAL else spec)
 
-    def apply(keys, images):
+    def apply(keys, images, hw=None):
         out = _apply_specs_batched((stripped,), keys,
-                                   images.to(torch.float32))
+                                   images.to(torch.float32), hw)
         for _ in range(n_stages):
             out = bilateral_batched(out)
         return out
@@ -292,9 +318,9 @@ def _generic_pipeline(plan: NoisePlan) -> _PerImagePipeline:
     denoise and the post-pass."""
     post = _post_batched_for(plan, plan.specs[0].unit_float_output)
 
-    def apply(keys, images):
+    def apply(keys, images, hw=None):
         return post(_apply_specs_batched(plan.specs, keys,
-                                         images.to(torch.float32)))
+                                         images.to(torch.float32), hw))
 
     return _PerImagePipeline('cuda:generic', apply)
 

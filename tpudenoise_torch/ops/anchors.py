@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpudenoise_torch.utils.transfer import to_device
+
 
 def generate_anchors(base_size: int = 16, ratios=(0.5, 1, 2),
                      scales=(8, 16, 32)) -> np.ndarray:
@@ -41,7 +43,7 @@ def anchor_grid(height: int, width: int, feat_stride: int = 16,
                 device=None) -> torch.Tensor:
     """(H*W*A, 4) float32 anchors; anchors vary fastest, then x, then y."""
     base = generate_anchors(ratios=anchor_ratios, scales=anchor_scales)
-    base = torch.as_tensor(base.astype(np.int32), device=device)
+    base = to_device(base.astype(np.int32), device or 'cpu')
     sx = torch.arange(width, dtype=torch.int32, device=device) * feat_stride
     sy = torch.arange(height, dtype=torch.int32, device=device) * feat_stride
     yy, xx = torch.meshgrid(sy, sx, indexing='ij')

@@ -1,4 +1,5 @@
-"""Box geometry (counterpart of `tpudenoise/ops/boxes.py`), with the
+"""Box geometry (counterpart of `tpudenoise/ops/boxes.py`): decode, clip,
+encode (`bbox_transform`) and IoU (`bbox_overlaps`), with the
 reference's "+1 pixel" width convention.  Boxes are (..., 4) in
 (x1, y1, x2, y2); everything broadcasts over leading dims."""
 
@@ -60,3 +61,40 @@ def clip_boxes_lower_only(boxes: torch.Tensor, im_shape) -> torch.Tensor:
     x2 = torch.minimum(boxes[..., 2::4], w - 1)
     y2 = torch.minimum(boxes[..., 3::4], h - 1)
     return torch.stack([x, y, x2, y2], dim=-1).reshape(boxes.shape)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor
+                   ) -> torch.Tensor:
+    """Encode (..., 4) gt boxes relative to (..., 4) example boxes:
+    (..., 4) deltas (dx, dy, dw, dh)."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)],
+                       dim=-1)
+
+
+def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor
+                  ) -> torch.Tensor:
+    """IoU of (..., N, 4) boxes against (..., K, 4) query boxes ->
+    (..., N, K), 0 where the union is not positive."""
+    bx = boxes[..., :, None, :]
+    qx = query_boxes[..., None, :, :]
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    iw = torch.maximum(torch.minimum(bx[..., 2], qx[..., 2])
+                       - torch.maximum(bx[..., 0], qx[..., 0]) + 1.0, zero)
+    ih = torch.maximum(torch.minimum(bx[..., 3], qx[..., 3])
+                       - torch.maximum(bx[..., 1], qx[..., 1]) + 1.0, zero)
+    inter = iw * ih
+    area_b = ((bx[..., 2] - bx[..., 0] + 1.0)
+              * (bx[..., 3] - bx[..., 1] + 1.0))
+    area_q = ((qx[..., 2] - qx[..., 0] + 1.0)
+              * (qx[..., 3] - qx[..., 1] + 1.0))
+    union = area_b + area_q - inter
+    return torch.where(union > 0, inter / union, zero)

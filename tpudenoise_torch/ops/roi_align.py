@@ -54,14 +54,15 @@ def crop_and_resize(feat: torch.Tensor, boxes: torch.Tensor,
 
 
 def max_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
-    """slim.max_pool2d([2, 2], padding='SAME') over (..., H, W, C)."""
+    """slim.max_pool2d([2, 2], padding='SAME') over (..., H, W, C): SAME
+    pads the far edge with -inf, as ceil_mode does.  Through max_pool2d,
+    whose gradient goes to the first maximum of each window, as XLA's
+    reduce_window (select_and_scatter) routes it; a mean over ties would
+    split it."""
     *lead, h, w, c = x.shape
-    ph, pw = h % 2, w % 2
-    if ph or pw:   # SAME pads the far edge with -inf
-        x = torch.nn.functional.pad(x, (0, 0, 0, pw, 0, ph),
-                                    value=float('-inf'))
-        h, w = h + ph, w + pw
-    return x.reshape(*lead, h // 2, 2, w // 2, 2, c).amax(dim=(-4, -2))
+    y = torch.nn.functional.max_pool2d(
+        x.reshape(-1, h, w, c).permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
+    return y.permute(0, 2, 3, 1).reshape(*lead, y.shape[2], y.shape[3], c)
 
 
 def roi_boxes_to_normalized(rois: torch.Tensor, feat_hw, feat_stride: float
