@@ -38,17 +38,25 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      stage-cut sap + median kernels (the profiling forks) on the
      edge-padded raster of (8, 600, 1000, 3) f32 and u8 images, every
      stage, and the full stage on a random raster, bit-exact, and again
-     at the profiling scripts' size (B=128), where each is timed;
+     at the profiling scripts' size (B=128), where each is timed; the
+     wavelet denoiser (torch f32 matmuls, not a kernel: a line of its
+     own) on (8, 600, 1000, 3) unit floats with and without per-image
+     valid extents, card against CPU within 2e-5 and its u8 cast within
+     a mod-256 distance of 1 on <= 1e-3 of the elements, timed, its bound
+     the banded matmuls' operations over 67 T/s;
   4. correctness of the whole chunk on a small input: the card's
      detect_chunk (f32) against the same chunk run on the CPU through the
      plain versions, for sap, gauss, noise_mix_var_all_bilateral,
-     speckle_bilateral_var1.0, uniform_mean_var0.6 and quant_var10, and
-     the sap chunk with a seeded res50;
+     speckle_bilateral_var1.0, uniform_mean_var0.6, quant_var10,
+     gaussian_wavelet_var0.1 and noise_mix_var_all_wavelet (>= 95% of
+     the CPU's detections with a card twin), and the sap chunk with a
+     seeded res50;
   5. main path: detect_chunk with a seeded-init vgg16 VOC-21 Faster R-CNN
      in bf16 on (8, 600, 1000, 3) u8 frames, bucket (608, 1024), for
      sap_median_var0.4, gaussian_gaus_blur_var0.1,
      noise_mix_var_all_bilateral, noise_mix_var_all, bloom,
-     speckle_bilateral_var1.0 and poisson; 3 warm + 5 timed chunks each,
+     speckle_bilateral_var1.0, poisson, gaussian_wavelet_var0.1 and
+     noise_mix_var_all_wavelet; 3 warm + 5 timed chunks each,
      chunk i holding images 8i..8i+7 (so each chunk draws its own noise
      and, for the mixes, its own kinds); the launch counters are zeroed
      before each path and read after it, and the path's kernels must have
@@ -89,8 +97,9 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      from 6 (the restored state equal to the saved one bit for bit, and
      iterations 1-8 seeing the keys and batches of an uninterrupted run);
      vgg16 3 iterations on gaussian_gaus_blur_var0.1 (dropout); one res101
-     step each on bloom and speckle_bilateral_var1.0 (the masked generic
-     and bilateral routes).  Each call: finite losses, kernel 3 and the
+     step each on bloom, speckle_bilateral_var1.0 and
+     gaussian_wavelet_var0.1 (the masked generic and bilateral routes,
+     the wavelet's statistics over each image's valid region).  Each call: finite losses, kernel 3 and the
      walk once a step at 12000 -> 2000 boxes, the noise string's kernels
      and the threefry draws (8 a step, 10 with vgg16's dropout) launched
      as expected, every launch held to its plain version on its own
@@ -102,6 +111,17 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      warm and 5 timed steps split by CUDA events (noise, forward + loss,
      backward, optimizer), the peak memory, and one step under
      set_sync_debug_mode('warn') listing where it waits on the device;
+  5c. the noise grid (after training): `experiments.noise_grid.main` in
+     process with a seeded res101 (full width and depth), the fixture at
+     16 train / 20 test images of 240x320 (seed 3), 20 iterations with a
+     snapshot every 10, all 41 GRID strings and the three control rows,
+     under build/chip_smoke_grid: finite APs in [0, 1] in every row, the
+     three gaus_blur rows equal, each row's route launching its noise
+     kernels and no others and kernel 3 and the walk twice a chunk, every
+     launch held to its plain version; a second call trains no step; then
+     `cli.reval.main` on two rows' output dirs: the row's APs exactly
+     without --nms, finite ones with it (its NMS launches held to their
+     plain versions); training, sweep and per-row seconds logged;
   6. where the time goes: two chunks of each string under torch.profiler
      (device kernel time, idle share, the port's own kernels' share, split
      by kernel name with their launches: the threefry draws' device time
@@ -170,10 +190,16 @@ B, H, W = 8, 600, 1000
 BUCKET = (608, 1024)
 NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
           'noise_mix_var_all_bilateral', 'noise_mix_var_all', 'bloom',
-          'speckle_bilateral_var1.0', 'poisson')
+          'speckle_bilateral_var1.0', 'poisson', 'gaussian_wavelet_var0.1',
+          'noise_mix_var_all_wavelet')
 SMALL_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
                 'noise_mix_var_all_bilateral', 'speckle_bilateral_var1.0',
-                'uniform_mean_var0.6', 'quant_var10')
+                'uniform_mean_var0.6', 'quant_var10',
+                'gaussian_wavelet_var0.1', 'noise_mix_var_all_wavelet')
+# the wavelet line: floats card vs CPU (the decomposition's budget) and
+# the u8 cast's mod-256 distance 1 on at most this share of the elements
+WAVELET_TOL = 2e-5
+WAVELET_U8_SHARE = 1e-3
 DEV = 'cuda'
 MASKS, WALK = 'build_suppression_masks_cuda', 'greedy_keep'
 # no Pallas counterpart: the reference's nms_packed sweeps to a fixpoint
@@ -863,7 +889,9 @@ PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched',),
                 'bloom': ('bloom_batched',),
                 'speckle_bilateral_var1.0': ('threefry_draw',
                                              'bilateral_batched'),
-                'poisson': ('threefry_draw',)}
+                'poisson': ('threefry_draw',),
+                'gaussian_wavelet_var0.1': ('threefry_draw',),
+                'noise_mix_var_all_wavelet': ('fused_mix_noise',)}
 NMS_KERNELS = (MASKS, WALK)
 ENTRY_PATH = 'fused_sap_median entry'
 PROFILE_PATH = 'profiling entry points'
@@ -1543,9 +1571,12 @@ def cli_profiled(card: str, inp: dict) -> dict:
 TRAIN_IMAGES = 16
 TRAIN_NOISE = 'sap_median_var0.4'
 VGG_TRAIN_NOISE = 'gaussian_gaus_blur_var0.1'
-# one step each through the masked generic route (bloom, kernel 8) and the
-# masked bilateral route (speckle's threefry field, kernel 5 twice)
-MASKED_NOISES = ('bloom', 'speckle_bilateral_var1.0')
+# one step each through the masked generic route (bloom, kernel 8; the
+# gaussian wavelet: its threefry field, then the wavelet twice with
+# statistics over each image's valid region) and the masked bilateral
+# route (speckle's threefry field, kernel 5 twice)
+MASKED_NOISES = ('bloom', 'speckle_bilateral_var1.0',
+                 'gaussian_wavelet_var0.1')
 TRAIN_TIMED = 5
 # threefry draws a step: the anchor targets' two uniform fields, the
 # proposal targets' two uniform fields and two randints of two bit fields
@@ -1556,7 +1587,8 @@ TRAIN_NOISE_LAUNCHES = {
     TRAIN_NOISE: {'fused_sap_median_batched': 1},
     VGG_TRAIN_NOISE: {'fused_gaussian_blur': 1},
     'bloom': {'bloom_batched': 1},
-    'speckle_bilateral_var1.0': {'bilateral_batched': 2, 'threefry_draw': 1}}
+    'speckle_bilateral_var1.0': {'bilateral_batched': 2, 'threefry_draw': 1},
+    'gaussian_wavelet_var0.1': {'threefry_draw': 1}}
 # kernel wrappers the training path launches, beside the CLI phase's
 TRAIN_TAPPED = {**TAPPED,
                 'threefry_draw': (prng, 'threefry_draw',
@@ -2006,6 +2038,269 @@ def train_profiled(card: str, timing_: dict) -> dict:
                       e.count // 2) for e in top])
 
 
+def check_wavelet(dev, card: str) -> dict:
+    """The wavelet denoiser (torch f32 matmuls, no kernel of the port's
+    own) on (8, 600, 1000, 3) unit floats, without and with per-image
+    valid extents, on the card against the same function on the CPU:
+    floats within WAVELET_TOL, and wrap_cast_u8(255 * w) within a mod-256
+    distance of 1 on at most WAVELET_U8_SHARE of the elements.  Timed by
+    CUDA events; its bound is the banded matmuls' operations over 67
+    T/s."""
+    from tpudenoise_torch.denoise import wavelet as wv
+    from tpudenoise_torch.noise.generators import wrap_cast_u8
+    rng = np.random.RandomState(8)
+    base = rng.rand(B, 1, 1, 3) * 0.6 + 0.2
+    x = np.clip(base + rng.randn(B, H, W, 3) * 0.15, 0, 1).astype(
+        np.float32)
+    img = torch.from_numpy(x)
+    hw = np.array([(H - 13 * i, W - 29 * i) for i in range(B)], np.int64)
+    out = {}
+    for form, ext in (('full', None), ('hw', hw)):
+        t0 = time.perf_counter()
+        want = wv.denoise_wavelet_batched(img, hw=ext)
+        cpu_s = time.perf_counter() - t0
+        got = wv.denoise_wavelet_batched(img.to(dev), hw=ext).cpu()
+        err = (got - want).abs().max().item()
+        d = (wrap_cast_u8(255.0 * got) - wrap_cast_u8(255.0 * want)).abs()
+        d = torch.minimum(d, 256.0 - d)
+        share = (d > 0).double().mean().item()
+        xd = img.to(dev)
+        ms = time_ms(lambda: wv.denoise_wavelet_batched(xd, hw=ext), 5)
+        flops = wv.matmul_flops(3 * B, H, W)
+        out[form] = dict(max_abs_err=err, u8_max_dist=d.max().item(),
+                         u8_changed_share=share, ms=ms, cpu_ms=cpu_s * 1e3,
+                         matmul_flops=flops,
+                         bound_ms=flops / OPS_PER_S * 1e3,
+                         bound_by='operations')
+        log(f'wavelet denoise_wavelet_batched ({B}, {H}, {W}, 3) {form}: '
+            f'card vs CPU max |diff| {err:.3g} (bound {WAVELET_TOL}); u8 '
+            f'cast mod-256 max {d.max().item():g} on {share:.2e} of the '
+            f'elements (bound 1 on {WAVELET_U8_SHARE}); {ms:.3f} ms by CUDA '
+            f'events, CPU {cpu_s * 1e3:.0f} ms; {flops / 1e9:.1f} GFLOP of '
+            f'banded matmuls, bound {flops / OPS_PER_S * 1e3:.3f} ms '
+            f'(operations)  [{card}]')
+        if not (err <= WAVELET_TOL and d.max().item() <= 1
+                and share <= WAVELET_U8_SHARE):
+            raise AssertionError(f'wavelet {form}: card and CPU disagree')
+    return out
+
+
+# the grid phase: the fixture's split sizes, iterations and snapshot
+GRID_ITERS, GRID_SNAPSHOT, GRID_TRAIN, GRID_TEST = 20, 10, 16, 20
+# kinds whose generic route draws through the threefry kernel
+THREEFRY_KINDS = {Kind.GAUSSIAN, Kind.POISSON, Kind.SAP, Kind.SPECKLE,
+                  Kind.UNIFORM, Kind.GAMMA, Kind.RAYLEIGH, Kind.BROWNIAN}
+NOISE_KERNELS = ('fused_sap_median_batched', 'fused_gaussian_blur',
+                 'fused_mix_noise', 'fused_mix_bilateral', 'bloom_batched',
+                 'bilateral_batched', 'threefry_draw')
+GRID_TAPPED = {**TRAIN_TAPPED,
+               'fused_mix_noise': (pipeline, 'fused_mix_noise',
+                                   mk.fused_mix_noise_plain)}
+
+
+def grid_row_kernels(noise) -> set:
+    """The noise kernels a grid row's route must launch (and no others)."""
+    fn = make_pipeline(noise)
+    plan = noise if not isinstance(noise, str) else parse(noise)
+    kind = plan.specs[0].kind
+    if fn.backend == 'cuda:sap_median':
+        return {'fused_sap_median_batched'}
+    if fn.backend == 'cuda:gaussian_blur':
+        return {'fused_gaussian_blur'}
+    if fn.backend.startswith('cuda:fused_mix'):
+        return {'fused_mix_bilateral' if 'bilateral' in fn.backend
+                else 'fused_mix_noise'}
+    want = {'threefry_draw'} if kind in THREEFRY_KINDS else set()
+    if fn.backend.startswith('cuda:bilateral'):
+        want.add('bilateral_batched')
+    if kind == Kind.BLOOM:
+        want.add('bloom_batched')
+    return want
+
+
+def hold_mix_to_plain(launches, path: str) -> float:
+    """Kernel 6's launches against its plain version, per image by the
+    kind it drew: bit-exact, or a mod-256 distance of 1 on at most 1e-3
+    of the elements for the kinds through log/exp/cos (gaussian's floats
+    within 1e-6)."""
+    err = 0.0
+    for a, k, got in launches:
+        want = mk.fused_mix_noise_plain(*a, **k)
+        kinds, branch = a[-1], a[1].tolist()
+        for i, pos in enumerate(branch):
+            kind = kinds[pos]
+            d = (got[i] - want[i]).abs()
+            if kind in TRANSCENDENTAL:
+                d = d * 1e6 if kind == 1 else torch.minimum(d, 256.0 - d)
+                ok = d.max().item() <= 1 and (
+                    d > 0).double().mean().item() <= 1e-3
+            else:
+                ok = d.max().item() == 0
+            if not ok:
+                raise AssertionError(f'{path}: fused_mix_noise image {i} '
+                                     f'(kind {kind}) differs from its plain '
+                                     f'version ({d.max().item()})')
+            err = max(err, d.max().item())
+    return err
+
+
+def grid_phase(card: str) -> dict:
+    """The noise grid through the port, in process: `noise_grid.main` with
+    res101 (seeded, full width and depth), the fixture at 16 train / 20
+    test images of 240x320 (seed 3), GRID_ITERS iterations with a
+    snapshot every GRID_SNAPSHOT, every GRID string and the three control
+    rows, under build/.  Each row: finite APs in [0, 1]; its route's noise
+    kernels launched (and no others), kernel 3 and the walk twice a chunk;
+    every launch held to its plain version.  The three gaus_blur rows
+    equal.  A second call (one row) restores the finished snapshot and
+    trains no step, and scores that row as the first did.  Then
+    `cli.reval.main` on two rows' output dirs: without --nms exactly the
+    row's APs, with --nms finite ones (kernel 3 and the walk launched,
+    each launch held to its plain version)."""
+    import os.path as osp
+    import shutil
+
+    import tpudenoise_torch.core.config as config
+    from tpudenoise_torch.cli import reval
+    from tpudenoise_torch.eval import harness
+    from tpudenoise_torch.experiments import noise_grid as ng
+    workdir = osp.join(default_config().ROOT_DIR, 'build', 'chip_smoke_grid')
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ['--net', 'res101', '--iters', str(GRID_ITERS), '--n-train',
+            str(GRID_TRAIN), '--n-test', str(GRID_TEST), '--workdir',
+            workdir, '--out-md', osp.join(workdir, 'RESULTS.md'),
+            '--out-json', osp.join(workdir, 'RESULTS.json')]
+    rows_seen, aps_of, totals = {}, {}, {}
+
+    def grid_config(fn):
+        def call(*a, **k):
+            cfg = fn(*a, **k)
+            cfg.TRAIN.SNAPSHOT_ITERS = GRID_SNAPSHOT
+            return cfg
+        return call
+
+    def record_aps(fn):
+        def call(model, params, imdb, name, noise, **k):
+            aps_of[name] = fn(model, params, imdb, name, noise, **k)
+            return aps_of[name]
+        return call
+
+    def evaluate_row(fn):
+        def call(model, params, cfg, net, noise, eval_batch, label=None):
+            name = label or noise
+            zero_counts()
+            with taped(GRID_TAPPED) as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                row = fn(model, params, cfg, net, noise, eval_batch, label)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = launch_counts()
+            chunks = -(-GRID_TEST // eval_batch)
+            want = grid_row_kernels(noise)
+            got = {k for k in NOISE_KERNELS if counts[k]}
+            if got != want or any(counts[k] != 2 * chunks
+                                  for k in NMS_KERNELS):
+                raise AssertionError(f'grid row {name}: launches '
+                                     f'{ {k: v for k, v in counts.items() if v} }'
+                                     f', expected {sorted(want)} and '
+                                     f'{2 * chunks} of each NMS kernel')
+            t1 = time.perf_counter()
+            mix = calls.pop('fused_mix_noise', None)
+            held = hold_train_to_plain(calls, f'grid row {name}', card) \
+                if calls else {}
+            if mix:
+                held['fused_mix_noise'] = dict(
+                    launches=len(mix), max_abs_err=hold_mix_to_plain(
+                        mix, f'grid row {name}'))
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            rows_seen[name] = dict(row=row, wall_s=wall,
+                                   hold_s=time.perf_counter() - t1,
+                                   launches={k: v for k, v in counts.items()
+                                             if v})
+            aps = row['AP@.5'], row['AP@[.5,.95]']
+            if not all(np.isfinite(a) and 0 <= a <= 1 for a in aps):
+                raise AssertionError(f'grid row {name}: APs {aps}')
+            return row
+        return call
+
+    t0 = time.perf_counter()
+    with patched(ng, 'grid_config', grid_config), \
+            patched(ng, 'evaluate_row', evaluate_row), \
+            patched(harness, 'test_net_batched', record_aps), \
+            recording() as (seen, _):
+        meta = ng.main(argv)
+    wall = time.perf_counter() - t0
+    if len(seen) != GRID_ITERS or not all(
+            np.isfinite(v) for x in seen for v in x['losses'].values()):
+        raise AssertionError(f'grid: {len(seen)} training steps seen')
+    rows = meta['results']
+    if [r['noise'] for r in rows[:len(ng.GRID)]] != ng.GRID or \
+            len(rows) != len(ng.GRID) + len(ng.CONTROLS):
+        raise AssertionError(f'grid: rows {[r["noise"] for r in rows]}')
+    blur = [(r['AP@.5'], r['AP@[.5,.95]']) for r in rows
+            if r['noise'].startswith('gaussian_gaus_blur')]
+    if len(blur) != 3 or len(set(blur)) != 1:
+        raise AssertionError(f'grid: the gaus_blur rows differ {blur}')
+    hold_s = sum(r['hold_s'] for r in rows_seen.values())
+    log(f'grid: trained res101 {GRID_ITERS} iterations in '
+        f'{meta["train_s"]:.1f} s, swept {len(rows)} rows in '
+        f'{meta["sweep_s"]:.1f} s ({hold_s:.1f} s of it holding launches '
+        f'to their plain versions); phase {wall:.1f} s  [{card}]')
+    log('grid rows (AP@.5, AP@[.5,.95], s): ' + '; '.join(
+        f'{r["noise"]} {r["AP@.5"]:.4f} {r["AP@[.5,.95]"]:.4f} '
+        f'{rows_seen[r["noise"]]["wall_s"]:.2f}' for r in rows))
+    # the second call: one row, the finished snapshot restored
+    with patched(ng, 'GRID', lambda grid: grid[:1]), \
+            patched(ng, 'grid_config', grid_config), \
+            recording() as (seen2, restored):
+        meta2 = ng.main(argv)
+    if seen2 or not restored or meta2['results'][0] != {
+            **rows[0], 'eval_s': meta2['results'][0]['eval_s']}:
+        raise AssertionError(f'grid second call: {len(seen2)} steps, '
+                             f'{meta2["results"][0]} against {rows[0]}')
+    # reval on two rows' output dirs
+    cfg = ng.grid_config(workdir, GRID_ITERS)
+    revals = {}
+
+    def reval_main(argv_):
+        config.cfg.DATA_DIR = cfg.DATA_DIR
+        config.cfg.ROOT_DIR = cfg.ROOT_DIR
+        return reval.main(argv_)
+
+    for noise in ('sap_median_var0.4', 'gaussian_wavelet_var0.1'):
+        name = f'res101_grid_{noise}'
+        out_dir = get_output_dir('rrData_2021_test', name, cfg)
+        base = [out_dir, '--imdb', 'rrData_2021_test', '--comp']
+        aps, _, _, _ = run_cli(reval_main, base)
+        if list(aps) != list(aps_of[name]):
+            raise AssertionError(f'reval {noise}: {aps} against the row\'s '
+                                 f'{aps_of[name]}')
+        with taped() as calls:
+            aps_nms, wall_nms, counts, _ = run_cli(reval_main,
+                                                   base + ['--nms'])
+        if not (counts[MASKS] and counts[WALK]) or not all(
+                np.isfinite(a) and 0 <= a <= 1 for a in aps_nms):
+            raise AssertionError(f'reval --nms {noise}: {aps_nms}, '
+                                 f'launches {counts}')
+        held = hold_to_plain(calls, f'reval --nms {noise}', card)
+        revals[noise] = dict(aps=list(aps), aps_nms=list(aps_nms),
+                             nms_s=wall_nms,
+                             launches={MASKS: counts[MASKS],
+                                       WALK: counts[WALK]}, held=held)
+        log(f'reval {noise}: the row\'s APs exactly; --nms AP@.5 '
+            f'{aps_nms[0]:.4f} (row {aps[0]:.4f}) in {wall_nms:.2f} s, '
+            f'launches {json.dumps(revals[noise]["launches"])}  [{card}]')
+    for r in revals.values():
+        for k, v in r['launches'].items():
+            totals[k] = totals.get(k, 0) + v
+    return {'noise grid': dict(
+        wall_s=wall, train_s=meta['train_s'], sweep_s=meta['sweep_s'],
+        hold_s=hold_s, rows=rows_seen, reval=revals,
+        launches={k: v for k, v in totals.items() if v})}
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -2101,6 +2396,7 @@ def main() -> int:
 
     rows = (check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
             + check_sap_stages(dev))
+    wavelet = check_wavelet(dev, card)
     check_small_chunk(dev)
     vgg = chunk_inputs(dev, 'vgg16')
     e2e = main_path(vgg, card, NOISES)
@@ -2113,6 +2409,7 @@ def main() -> int:
     e2e.update(cli_phase(card, cli))
     train_paths, train_info, train_timed = train_phase(card, rows)
     e2e.update(train_paths)
+    e2e.update(grid_phase(card))
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
     e2e.update(cli_profiled(card, cli))
@@ -2161,8 +2458,8 @@ def main() -> int:
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
     log(json.dumps({'main_path': e2e, 'dataset_loop': loop,
-                    'profile': prof, 'training': train_info, 'card': card},
-                   default=str))
+                    'wavelet': wavelet, 'profile': prof,
+                    'training': train_info, 'card': card}, default=str))
     log(f'chip_smoke: {time.perf_counter() - t_main:.1f} s from the start '
         f'of main() to the result, the build included  [{card}]')
     print(json.dumps({'kernels': rows}))

@@ -157,11 +157,9 @@ def test_pipeline_keyed_matches_jax(pallas_interpret, noise, f32_input):
 
 def test_other_plans_raise():
     """What stays unported raises, naming its ROADMAP item; the plans this
-    test once listed as unported now build on the threefry or bilateral
-    routes."""
-    for noise, item in (('noise_mix_var_low_wavelet', 'item 10'),
-                        ('gaussian_wavelet_var0.1', 'item 10'),
-                        ('curvelet', 'item 13')):
+    test once listed as unported now build on the threefry, bilateral or
+    mix routes (the wavelet ones with the wavelet denoiser)."""
+    for noise, item in (('curvelet', 'item 13'),):
         with pytest.raises(NotImplementedError, match=item):
             make_pipeline(noise)
     with pytest.raises(NotImplementedError, match='item 8'):
@@ -172,7 +170,9 @@ def test_other_plans_raise():
                            ('gaussian_median_var0.1', 'cuda:generic'),
                            ('speckle_median_var1.0', 'cuda:generic'),
                            ('speckle_bilateral_var1.0', 'cuda:bilateral_x2'),
-                           ('bloom_median', 'cuda:generic')):
+                           ('bloom_median', 'cuda:generic'),
+                           ('gaussian_wavelet_var0.1', 'cuda:generic'),
+                           ('noise_mix_var_low_wavelet', 'cuda:fused_mix')):
         assert make_pipeline(noise).backend == backend, noise
 
 

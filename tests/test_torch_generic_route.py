@@ -105,18 +105,14 @@ def test_route_matches_jax(noise, shape):
 
 
 def test_every_single_kind_results_string_builds():
-    """Every single-kind row of RESULTS.md but the wavelet one builds, and
-    each backend is the reference's own route."""
+    """Every single-kind row of RESULTS.md builds (the wavelet one too),
+    and each backend is the reference's own route."""
     with open(osp.join(REPO, 'RESULTS.md')) as f:
         rows = set(re.findall(r'^\| ([a-z0-9_.]+)(?: \(control[^|]*\))? \|',
                               f.read(), re.M)) - {'noise'}
     single = sorted(r for r in rows if 'mix' not in r)
     assert len(single) == 37
     for noise in single:
-        if 'wavelet' in noise:
-            with pytest.raises(NotImplementedError, match='item 10'):
-                make_pipeline(noise)
-            continue
         jfn = jax_make_pipeline(noise, mode='TEST', use_pallas=True)
         assert make_pipeline(noise).backend == jfn.backend.replace(
             'pallas:', 'cuda:').replace('xla', 'cuda:generic'), noise

@@ -83,7 +83,11 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.data.loader',
             'tpudenoise_torch.data.roidb',
             'tpudenoise_torch.data.prefetch',
-            'tpudenoise_torch.data.ds_utils'} <= names
+            'tpudenoise_torch.data.ds_utils',
+            'tpudenoise_torch.denoise.wavelet',
+            'tpudenoise_torch.cli.reval',
+            'tpudenoise_torch.experiments.noise_grid',
+            'tpudenoise_torch.experiments.grid_diff'} <= names
 
 
 def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
@@ -135,8 +139,9 @@ def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
 def test_config_and_clis_run_without_yaml_cv2_or_pil():
     """With jax, flax, `tpudenoise`, yaml, cv2 and PIL refused: the config
     applies every cfg file of experiments/cfgs and a `--set` list, and
-    `python -m tpudenoise_torch.cli.test --help` and `cli.demo --help`
-    (run through runpy under the refusing finder) exit 0."""
+    `python -m tpudenoise_torch.cli.test --help`, `cli.demo --help`,
+    `cli.reval --help` and `experiments.noise_grid --help` (run through
+    runpy under the refusing finder) exit 0."""
     refused = REFUSED + ('yaml', 'cv2', 'PIL')
     code = textwrap.dedent(f'''
         import glob, importlib.abc, runpy, sys
@@ -158,7 +163,9 @@ def test_config_and_clis_run_without_yaml_cv2_or_pil():
             c = cfg_from_file(path, into=default_config())
         cfg_from_list(['TEST.SCALES', '[120]', 'EXP_DIR', 'x'], into=c)
         assert c.TEST.SCALES == (120,) and c.ANCHOR_SCALES == [8, 16, 32]
-        for name in ('tpudenoise_torch.cli.test', 'tpudenoise_torch.cli.demo'):
+        for name in ('tpudenoise_torch.cli.test', 'tpudenoise_torch.cli.demo',
+                     'tpudenoise_torch.cli.reval',
+                     'tpudenoise_torch.experiments.noise_grid'):
             sys.argv = [name, '--help']
             try:
                 runpy.run_module(name, run_name='__main__')

@@ -299,10 +299,12 @@ def test_mix_routes_and_refusals():
     assert make_pipeline('noise_mix_var_low').backend == 'cuda:fused_mix'
     assert (make_pipeline('noise_mix_var_high_bilateral').backend
             == 'cuda:fused_mix+bilateral')
-    for noise, item in (('noise_mix_var_all_wavelet', 'item 10'),
-                        ('curvelet', 'item 13')):
+    for noise, item in (('curvelet', 'item 13'),):
         with pytest.raises(NotImplementedError, match=item):
             make_pipeline(noise, mode='TRAIN')
+    # the wavelet post-pass runs after the fused mix kernel
+    assert (make_pipeline('noise_mix_var_all_wavelet', mode='TRAIN').backend
+            == 'cuda:fused_mix')
     # a 3x3 stencil post-pass runs after the fused mix kernel
     assert (make_pipeline('noise_mix_var_all_median', mode='TRAIN').backend
             == 'cuda:fused_mix')

@@ -56,6 +56,14 @@ def env(tmp_path_factory):
                                    'noise_mix_var_medium', 'bloom',
                                    'speckle_bilateral_var1.0'])
 def test_slice_matches_jax(env, noise, monkeypatch):
+    matched, total = match_row(env, noise, monkeypatch)
+    assert total > 0 and matched / total >= 0.95, (matched, total)
+
+
+def match_row(env, noise, monkeypatch):
+    """Both packages' test_net_batched on `noise`: the count of JAX
+    detections with a port twin within 0.5 px (and score), and the total;
+    asserts the count per (class, image) differs by at most one."""
     import jax
     import jax.numpy as jnp
     import tpudenoise.denoise.pallas_bilateral as pbl
@@ -119,7 +127,7 @@ def test_slice_matches_jax(env, noise, monkeypatch):
                 if b.size and np.abs(b - row).max(1).min() < 0.5:
                     matched += 1
     print(f'{noise}: {matched}/{total} JAX detections matched')
-    assert total > 0 and matched / total >= 0.95, (matched, total)
+    return matched, total
 
 
 def test_port_imports_no_jax_and_runs_detect_chunk():

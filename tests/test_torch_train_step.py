@@ -26,12 +26,13 @@ Bounds, each stated with its reason:
   1.32e-3 of its max |g|; that entry alone is held within 1.5e-3, every
   other entry of the tensor within the bound above;
 * the frozen parameter sets equal, name for name (JAX path <-> state
-  dict key), and frozen parameters unchanged by the step.  The JAX step
-  freezes by a filter over the 'head' tree only, so it trains the BN
-  parameters of the resnet tail (block4's gamma, beta, mean and var);
-  the port keeps BN frozen everywhere, as the reference's resnet_v1 does:
-  those leaves are held unchanged in the port and left out of the
-  comparison of the updated parameters;
+  dict key), and frozen parameters unchanged by the step.  The optimizer
+  masks equal the JAX step's own (`make_optimizer`'s `trainable_mask`
+  and `bias_mask`, and the L2 term's kernels), leaf for leaf: the JAX
+  step freezes by a filter over the 'head' tree only, so the resnet
+  tail's BN (block4's gamma, beta, mean and var) trains in both
+  packages, at 1x the rate and without weight decay, and is compared
+  like every other parameter;
 * the parameters after the step: max |diff| within that bound * lr * 2 *
   max |g| of each tensor (one step of SGD from equal parameters, biases
   doubled), plus 2 ulp of its largest |p| (the rounding of p + update).
@@ -47,12 +48,15 @@ import torch
 
 from tpudenoise.core.config import default_config as jax_config
 from tpudenoise.models.faster_rcnn import FasterRCNN as JaxRCNN
-from tpudenoise.train.train_step import (l2_regularization as j_l2,
+from tpudenoise.train.train_step import (_is_kernel as j_is_kernel,
+                                         l2_regularization as j_l2,
+                                         make_optimizer as j_make_optimizer,
                                          make_train_step as j_make_step)
 from tpudenoise_torch.core.config import default_config
 from tpudenoise_torch.models.convert import from_jax_params, to_jax_flat
 from tpudenoise_torch.models.faster_rcnn import FasterRCNN
-from tpudenoise_torch.train.train_step import (l2_regularization,
+from tpudenoise_torch.train.train_step import (is_bias, is_kernel,
+                                               l2_regularization,
                                                make_train_step)
 
 BUCKET = (128, 192)
@@ -259,11 +263,6 @@ def test_params_after_step_match(step_pair):
                 for n, v in RELU_BOUNDARY.items()
                 if n in s['grads'] and s['tol'] == GRAD_TOL}
     for name, want in jflat.items():
-        if name.startswith('tail/') and _is_bn(name):
-            # trained by the JAX step only (see the module docstring)
-            np.testing.assert_array_equal(
-                got[name], _flat_jax(s['jstate'].params)[name])
-            continue
         # plus the f32 rounding of p + update: 2 ulp of the largest |p|
         ulp2 = 2 * np.spacing(np.abs(want).max())
         bound = s['tol'] * s['lr'] * 2 * gmax.get(name, 0.0) + ulp2
@@ -274,3 +273,33 @@ def test_params_after_step_match(step_pair):
             bound = tol * s['lr'] * 2 * gmax[name] + ulp2
         err = diff.max()
         assert err <= bound, (name, err, bound)
+
+
+def test_optimizer_masks_match(step_pair):
+    """Which leaves train, take the doubled bias rate and the L2 term: the
+    port's `model.frozen`, `is_bias` and `is_kernel` against the JAX
+    step's `trainable_mask`, `bias_mask` and kernel leaves, leaf for leaf
+    (buffers are never trained in the port, so a JAX leaf that trains is
+    a port parameter)."""
+    s = step_pair
+    jm = s['jmodel']
+    _, trainable_mask = j_make_optimizer(
+        _configs()[0], {'head': jm.frozen_filter, 'rpn': None, 'tail': None})
+    params = s['jstate'].params
+    j_train = _flat_jax(jax.tree_util.tree_map(
+        np.asarray, trainable_mask(params)))
+    j_kernel = _flat_jax(jax.tree_util.tree_map_with_path(
+        lambda p, _: np.asarray(j_is_kernel(p)), params))
+    model = s['model']
+    names = dict(model.named_parameters())
+    for n, v in s['state'].params.items():
+        jname = next(iter(_as_jax({n: v})))
+        trains = n in names and not model.frozen(n)
+        assert trains == bool(j_train[jname]), n
+        assert is_bias(n) == (jname.rsplit('/', 1)[1] == 'bias'), n
+        assert is_kernel(n) == bool(j_kernel[jname]), n
+    tail_bn = [n for n in names if n.startswith('tail.') and _is_bn(
+        n.replace('.', '/'))]
+    assert (len(tail_bn) > 0) == (s['model'].backbone == 'res50')
+    for n in tail_bn:
+        assert not torch.equal(s['new'].params[n], s['state'].params[n]), n

@@ -4,9 +4,14 @@ max-pool, blocks 1-3 with block3 at stride 1, 1024 channels) and the RoI
 tail (block4 at stride 1, then the mean over H and W: (R, 2048)).
 
 NCHW modules in channels-last memory, as `vgg.py`.  Convs have no bias;
-BN is frozen (a loaded affine, held in buffers).  Parameters are f32 and
-cast to the compute dtype at use.  `frozen_param_filter` gives the
-training freeze boundaries (RESNET.FIXED_BLOCKS and FREEZE_ROOT).
+BN is a loaded affine whose statistics no batch updates.  In the head its
+gamma, beta, mean and var are buffers (frozen, as the JAX step's
+`frozen_param_filter` keeps them); in the tail (block4) they are
+parameters, because the JAX step's freeze filter covers the 'head' tree
+only and so trains them by the gradient of the affine
+(`tpudenoise/train/train_step.py:125`).  Parameters are f32 and cast to
+the compute dtype at use.  `frozen_param_filter` gives the training
+freeze boundaries (RESNET.FIXED_BLOCKS and FREEZE_ROOT).
 """
 
 from __future__ import annotations
@@ -22,19 +27,26 @@ BLOCK_UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 class FrozenBatchNorm(nn.Module):
-    """BN with loaded statistics, never updated: scale and bias are
-    computed in f32 from gamma, beta, mean and var (buffers, so that they
-    are in the state dict but not trained), cast to the compute dtype, and
-    `x * scale + bias` runs in that dtype."""
+    """BN with loaded statistics that no batch updates: scale and bias are
+    computed in f32 from gamma, beta, mean and var, cast to the compute
+    dtype, and `x * scale + bias` runs in that dtype.  The four are
+    buffers (in the state dict, never trained), or parameters when
+    `trainable` (the tail's: SGD moves them through the affine)."""
 
     IDENTITY = (('gamma', 1.0), ('beta', 0.0), ('mean', 0.0), ('var', 1.0))
 
-    def __init__(self, channels: int, dtype=torch.bfloat16):
+    def __init__(self, channels: int, dtype=torch.bfloat16,
+                 trainable: bool = False):
         super().__init__()
         self.dtype = dtype
         for name, fill in self.IDENTITY:
-            self.register_buffer(name, torch.full((channels,), fill))
+            t = torch.full((channels,), fill)
+            if trainable:
+                self.register_parameter(name, nn.Parameter(t))
+            else:
+                self.register_buffer(name, t)
 
+    @torch.no_grad()
     def reset_parameters(self):
         for name, fill in self.IDENTITY:
             getattr(self, name).fill_(fill)
@@ -56,20 +68,24 @@ class Bottleneck(nn.Module):
     subsampled as x[:, :, ::s, ::s] when strided."""
 
     def __init__(self, depth_in: int, depth_bottleneck: int, stride: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, trainable_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         depth = 4 * depth_bottleneck
+
+        def bn(channels):
+            return FrozenBatchNorm(channels, dtype, trainable_bn)
+
         if depth_in != depth:
             self.shortcut = _conv(depth_in, depth, 1)
-            self.shortcut_bn = FrozenBatchNorm(depth, dtype)
+            self.shortcut_bn = bn(depth)
         self.conv1 = _conv(depth_in, depth_bottleneck, 1)
-        self.bn1 = FrozenBatchNorm(depth_bottleneck, dtype)
+        self.bn1 = bn(depth_bottleneck)
         self.conv2 = _conv(depth_bottleneck, depth_bottleneck, 3)
-        self.bn2 = FrozenBatchNorm(depth_bottleneck, dtype)
+        self.bn2 = bn(depth_bottleneck)
         self.conv3 = _conv(depth_bottleneck, depth, 1)
-        self.bn3 = FrozenBatchNorm(depth, dtype)
+        self.bn3 = bn(depth)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if hasattr(self, 'shortcut'):
@@ -88,12 +104,13 @@ class ResNetBlock(nn.Sequential):
     the stride on the LAST unit."""
 
     def __init__(self, depth_in: int, base_depth: int, num_units: int,
-                 stride: int, dtype=torch.bfloat16):
+                 stride: int, dtype=torch.bfloat16,
+                 trainable_bn: bool = False):
         super().__init__()
         for i in range(num_units):
             self.add_module(f'unit_{i + 1}', Bottleneck(
                 depth_in if i == 0 else 4 * base_depth, base_depth,
-                stride if i == num_units - 1 else 1, dtype))
+                stride if i == num_units - 1 else 1, dtype, trainable_bn))
 
 
 def reset_resnet(module: nn.Module, generator: torch.Generator):
@@ -140,13 +157,14 @@ class ResNetHead(nn.Module):
 class ResNetTail(nn.Module):
     """(R, 7, 7, 1024) NHWC RoIs -> block4 at stride 1 -> the mean over
     H and W, (R, 2048), rounded to the compute dtype as jnp.mean rounds
-    it."""
+    it.  block4's BN gamma, beta, mean and var are parameters: the JAX
+    step trains them (see the module docstring)."""
 
     def __init__(self, num_layers: int = 101, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
         self.block4 = ResNetBlock(1024, 512, BLOCK_UNITS[num_layers][3], 1,
-                                  dtype)
+                                  dtype, trainable_bn=True)
 
     def reset_parameters(self, generator: torch.Generator):
         reset_resnet(self, generator)
@@ -158,9 +176,9 @@ class ResNetTail(nn.Module):
 
 def frozen_param_filter(num_fixed_blocks: int = 1, freeze_root: bool = True):
     """A predicate over a head parameter's path below 'head': BN frozen
-    everywhere (in the port its statistics are buffers, never trained),
-    the root conv when freeze_root, and the first num_fixed_blocks
-    blocks."""
+    (in the head its statistics are buffers, never trained), the root
+    conv when freeze_root, and the first num_fixed_blocks blocks.  As in
+    the JAX step, it covers the head only: the tail's BN trains."""
     fixed_blocks = {f'block{i + 1}' for i in range(num_fixed_blocks)}
 
     def is_frozen(path) -> bool:

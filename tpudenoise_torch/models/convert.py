@@ -9,7 +9,8 @@ kernels (in, out) -> (out, in); fc6's rows keep the HWC flatten order of
 (R, 7, 7, 512), which the port's tail reproduces.  The resnet trees
 (`head/{conv1, conv1_bn, blockN/unit_K/{conv1..3, bn1..3, shortcut,
 shortcut_bn}}`, `tail/tail/block4/...`) map name for name; their convs have
-no bias and their BN statistics become buffers.
+no bias and their BN statistics become state-dict entries (buffers in the
+head, parameters in block4, which training updates).
 
 The `.npz` layout is flat keys 'tree/sub/.../leaf' -> array, as
 `tpudenoise.models.convert.save_params_npz` writes it; `load_params_npz`
@@ -19,7 +20,7 @@ inverse of `from_jax_params`), which the JAX package's `load_params_npz`
 reads back into the tree its `init` makes.  `merge_pretrained` overlays
 a partial tree (a backbone-only `.npz`) on the port's init state dict,
 leaf for leaf: a conv or Dense kernel or bias is one weight or bias, and
-a BN's gamma, beta, mean and var are four buffers.
+a BN's gamma, beta, mean and var are four entries.
 """
 
 from __future__ import annotations

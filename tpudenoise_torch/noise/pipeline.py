@@ -11,15 +11,19 @@ Ported routes (the reference's `use_pallas=True` routes):
 * every other single-kind plan (`pipeline.py:570-629`): the threefry
   generators (`generators.py`, `samplers.py`, `kmeans.quantize_colors`;
   bloom through the bloom kernel), then the per-spec denoise and the
-  post-pass as 3x3 stencils; a plan whose only denoise stages are
-  bilateral runs each as one pass of the bilateral kernel
-  (`_pallas_bilateral_pipeline`, `pipeline.py:393-436`).
+  post-pass as 3x3 stencils or the wavelet denoiser; a plan whose only
+  denoise stages are bilateral runs each as one pass of the bilateral
+  kernel (`_pallas_bilateral_pipeline`, `pipeline.py:393-436`).
+The wavelet (`denoise/wavelet.py`, f32 matmuls) runs batched over the
+whole batch with per-image statistics, on the noisy floats for the kinds
+of `_WAVELET_ON_FLOAT` and on the u8 image scaled to [0, 1] for the
+rest, then `wrap_cast_u8(255 * w)` (`pipeline.py:53-58, 126-157`).
 Seeds and key algebra come from the numpy threefry port (`core.prng`),
 and the generators' fields from its device draws, so the draws equal the
-reference's.  Wavelet and curvelet denoising (ROADMAP Queue 1 items 10
-and 13), `fast_rng` (item 8) and the XLA mix scan with the mixes'
-`masked` (item 9) raise NotImplementedError naming their items; nothing
-falls back to another route.
+reference's.  Curvelet denoising (ROADMAP Queue 1 item 13), `fast_rng`
+(item 8) and the XLA mix scan with the mixes' `masked` (item 9) raise
+NotImplementedError naming their items; nothing falls back to another
+route.
 
 The returned callable `fn(key, images)` takes a (2,) uint32 key and
 (B, H, W, 3) uint8 or float32 u8-domain images on any device and returns
@@ -30,8 +34,10 @@ edge-padded to a bucket with each one's valid (h, w) in hw, host ints.
 The sap and gaussian routes' masked is `keyed` (noise and stencils with
 no dependence on the valid extent); the generic and bilateral routes
 pass hw to the generators whose raster depends on it (brownian,
-periodic, quant, bloom; `pipeline.py:570-629, 423-430`), and their 3x3
-stencils and bilateral passes run over the whole canvas.  The mix
+periodic, quant, bloom; `pipeline.py:570-629, 423-430`) and to the
+wavelet, whose statistics then count each image's valid region only;
+their 3x3 stencils, bilateral passes and wavelet reconstruction run over
+the whole canvas.  The mix
 routes' masked (the XLA mix scan) raises NotImplementedError naming
 ROADMAP Queue 1 item 9.
 """
@@ -46,6 +52,7 @@ import torch
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.denoise import stencils
 from tpudenoise_torch.denoise.bilateral import bilateral_batched
+from tpudenoise_torch.denoise.wavelet import denoise_wavelet_batched
 from tpudenoise_torch.noise import generators as G
 from tpudenoise_torch.noise.bloom import bloom_batched
 from tpudenoise_torch.noise.fused_kernels import (fused_gaussian_blur,
@@ -166,8 +173,12 @@ class _MixPipeline(_PerImagePipeline):
             f'Queue 1 item 9)')
 
 
-_POST_ITEM = {Denoise.WAVELET: 'Queue 1 item 10',
-              Denoise.CURVELET: 'Queue 1 item 13'}
+_POST_ITEM = {Denoise.CURVELET: 'Queue 1 item 13'}
+
+# kinds whose `_wavelet` variant denoises the noisy floats; the others
+# cast to u8 first (`pipeline.py:126-127`)
+_WAVELET_ON_FLOAT = {Kind.GAUSSIAN, Kind.SAP, Kind.SPECKLE, Kind.UNIFORM,
+                     Kind.GAMMA, Kind.RAYLEIGH}
 
 
 _MIX_SCAN = ('the XLA mix scan (a per-image switch over a mix table) is not '
@@ -232,6 +243,13 @@ def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None):
     return img, 'u8'                                    # ORIGINAL
 
 
+def _wavelet_u8(images01: torch.Tensor, hw=None) -> torch.Tensor:
+    """The wavelet denoiser over (B, H, W, 3) unit floats, then the numpy
+    cast of 255 * out (truncate, wrap mod 256); hw: per-image valid (h,
+    w), host ints, or None."""
+    return G.wrap_cast_u8(255.0 * denoise_wavelet_batched(images01, hw=hw))
+
+
 def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
                hw=None) -> torch.Tensor:
     """One (kind, level, denoise) combination over (B, H, W, 3) float32
@@ -245,17 +263,23 @@ def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
         if spec.unit_float_output and spec.kind == Kind.GAUSSIAN:
             return noisy
         return u8
+    if d == Denoise.WAVELET:
+        return _wavelet_u8(noisy if spec.kind in _WAVELET_ON_FLOAT
+                           else G.to_unit(u8), hw)
     if d in _POST_ITEM:
         _refuse(d)
     return _FILTERS[d](u8, True)
 
 
 def apply_post(denoise: Denoise, images: torch.Tensor,
-               unit_float: bool) -> torch.Tensor:
-    """The standalone denoise post-pass; the 3x3 filters round only for
-    u8-domain inputs."""
+               unit_float: bool, hw=None) -> torch.Tensor:
+    """The standalone denoise post-pass over the batch; the 3x3 filters
+    round only for u8-domain inputs; the wavelet takes hw (per-image
+    valid (h, w), host ints) for its statistics."""
     if denoise == Denoise.NONE:
         return images
+    if denoise == Denoise.WAVELET:
+        return _wavelet_u8(images if unit_float else G.to_unit(images), hw)
     if denoise in _POST_ITEM:
         _refuse(denoise)
     return _FILTERS[denoise](images, not unit_float)
@@ -272,9 +296,9 @@ def _apply_specs_batched(specs, keys, images: torch.Tensor,
 
 def _post_batched_for(plan: NoisePlan, unit_float: bool):
     """The plan's post-pass over a batch, the same filter for every
-    image."""
-    def post(out):
-        return apply_post(plan.post_denoise, out, unit_float)
+    image; hw as `apply_post`."""
+    def post(out, hw=None):
+        return apply_post(plan.post_denoise, out, unit_float, hw)
     return post
 
 
@@ -320,7 +344,7 @@ def _generic_pipeline(plan: NoisePlan) -> _PerImagePipeline:
 
     def apply(keys, images, hw=None):
         return post(_apply_specs_batched(plan.specs, keys,
-                                         images.to(torch.float32), hw))
+                                         images.to(torch.float32), hw), hw)
 
     return _PerImagePipeline('cuda:generic', apply)
 

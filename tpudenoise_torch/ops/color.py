@@ -1,5 +1,7 @@
 """BGR <-> LAB for 8-bit images (counterpart of `tpudenoise/ops/color.py`
-`bgr_u8_to_lab_u8` / `lab_u8_to_bgr_u8`, the cv2.cvtColor math).
+`bgr_u8_to_lab_u8` / `lab_u8_to_bgr_u8`, the cv2.cvtColor math), and the
+BT.601 YCbCr pair of the wavelet denoiser (`rgb01_to_ycbcr`,
+`ycbcr_to_rgb01`, skimage's convention).
 
 The k-means palette of the "quant" noise is fitted on these LAB values
 (`noise/mix_prologue.py`).  The mix kernel maps pixels with its own,
@@ -91,3 +93,25 @@ def lab_u8_to_bgr_u8(lab: torch.Tensor) -> torch.Tensor:
     lin = xyz @ torch.from_numpy(_XYZ2RGB.T.copy()).to(lab.device)
     rgb = _linear_to_srgb(torch.clamp(lin, 0.0, 1.0))
     return torch.clamp(torch.round(rgb.flip(-1) * 255.0), 0.0, 255.0)
+
+
+def rgb01_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
+    """skimage rgb2ycbcr on (..., 3) floats in [0, 1]: Y in [16, 235],
+    Cb/Cr in [16, 240].  The wavelet feeds it BGR with no swap, as the
+    reference does."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16.0 + _f32(65.481) * r + _f32(128.553) * g + _f32(24.966) * b
+    cb = 128.0 - _f32(37.797) * r - _f32(74.203) * g + 112.0 * b
+    cr = 128.0 + 112.0 * r - _f32(93.786) * g - _f32(18.214) * b
+    return torch.stack([y, cb, cr], -1)
+
+
+def ycbcr_to_rgb01(ycbcr: torch.Tensor) -> torch.Tensor:
+    """The inverse transform, to [0, 1]-scaled floats (not clipped)."""
+    y = ycbcr[..., 0] - 16.0
+    cb = ycbcr[..., 1] - 128.0
+    cr = ycbcr[..., 2] - 128.0
+    r = _f32(0.00456621) * y + _f32(0.00625893) * cr
+    g = _f32(0.00456621) * y - _f32(0.00153632) * cb - _f32(0.00318811) * cr
+    b = _f32(0.00456621) * y + _f32(0.00791071) * cb
+    return torch.stack([r, g, b], -1)

@@ -7,6 +7,9 @@
 * `nms_packed`: the same over the suppression matrix packed into int32
   words by `build_suppression_masks_cuda` (the RPN proposal NMS at 6000
   boxes).  Bit b of word [wi, j] says box wi*32+b suppresses box j.
+* `nms_dets`: the host-facing form of the reference's `nms_py` for one
+  (N, 5) dets array (`cli/reval.py`), through `nms_fixpoint` on the
+  device the caller names.
 
 The keep set is the greedy one: alive[j] = valid[j] &
 !any_{i<j}(M[i, j] & alive[i]).  On the card `greedy_keep` walks the words
@@ -292,3 +295,23 @@ def nms_packed(boxes: torch.Tensor, scores: torch.Tensor,
         order, sboxes, in_valid = _sort_boxes(boxes, scores, None)
     masks = build_suppression_masks_cuda(sboxes, iou_threshold)
     return _finish(greedy_keep(masks, in_valid, max_outputs), order)
+
+
+def nms_dets(dets: np.ndarray, thresh: float, device='cuda') -> list:
+    """The reference's `nms_py` (`tpudenoise/ops/nms.py:380-403`) for one
+    (N, 5) [x1, y1, x2, y2, score] array: the kept indices in greedy
+    order, +1 box convention, a box kept where its IoU with every kept
+    box is <= thresh.  It runs as `nms_fixpoint` on `device` (on the card
+    kernel 3 and the walk; on the CPU their plain versions), in f32.
+    Scores that tie are taken in input order (a stable sort); `nms_py`'s
+    `argsort()[::-1]` takes tied scores in an order numpy's sort leaves,
+    so on ties the two may keep other boxes."""
+    dets = np.asarray(dets, np.float32).reshape(-1, 5)
+    n = dets.shape[0]
+    if n == 0:
+        return []
+    if n > MAX_WALK_N:
+        raise ValueError(f'nms_dets takes at most {MAX_WALK_N} boxes')
+    t = torch.from_numpy(np.ascontiguousarray(dets)).to(device)
+    keep, mask = nms_fixpoint(t[None, :, :4], t[None, :, 4], thresh, n)
+    return keep[mask].tolist()

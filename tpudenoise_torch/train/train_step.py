@@ -11,8 +11,13 @@ For each trainable parameter, in this order:
   5. p = p + (-lr) * m, lr the schedule at the step count before the
      update (optax's `scale_by_learning_rate`).
 
-The loss is the batch mean of `FasterRCNN.forward_train` plus the L2 term
-over every conv and dense kernel, frozen ones too.  Parameters stay f32;
+The parameters are the model's `named_parameters()`; `model.frozen`
+marks the head's frozen ones, which is the JAX step's `trainable_mask`
+(its freeze filter covers the 'head' tree only, so the resnet tail's BN
+gamma, beta, mean and var train, at 1x the rate and without weight
+decay: `bias_mask` and the L2 term take only 'bias' and 'kernel'
+leaves).  The loss is the batch mean of `FasterRCNN.forward_train` plus
+the L2 term over every conv and dense kernel, frozen ones too.  Parameters stay f32;
 the model computes in its dtype (bf16 by default) through differentiable
 casts, so gradients land in f32.  The step count lives on the host, so
 the learning rate never waits on the device.
