@@ -113,7 +113,7 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      set_sync_debug_mode('warn') listing where it waits on the device;
   5c. the noise grid (after training): `experiments.noise_grid.main` in
      process with a seeded res101 (full width and depth), the fixture at
-     16 train / 20 test images of 240x320 (seed 3), 20 iterations with a
+     16 train / 8 test images of 240x320 (seed 3), 20 iterations with a
      snapshot every 10, all 41 GRID strings and the three control rows,
      under build/chip_smoke_grid: finite APs in [0, 1] in every row, the
      three gaus_blur rows equal, each row's route launching its noise
@@ -122,10 +122,40 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      `cli.reval.main` on two rows' output dirs: the row's APs exactly
      without --nms, finite ones with it (its NMS launches held to their
      plain versions); training, sweep and per-row seconds logged;
-  6. where the time goes: two chunks of each string under torch.profiler
-     (device kernel time, idle share, the port's own kernels' share, split
-     by kernel name with their launches: the threefry draws' device time
-     a chunk gets a line of its own), and of the res101 sap chunk; then
+  5d. evaluation on datasets of many image shapes (after the grid):
+     first one small chunk of each new route, card against CPU (two
+     images of 160x200 and 200x160, seeded vgg16 f32: sap, brownian and
+     bloom on canvases, noise_mix_var_all_bilateral under the pyramid,
+     test_net on periodic, COCO's gaussian + blur; phase 4's
+     tolerance); then a seeded res101 (bf16, full width and depth),
+     eval batch 8, TEST scale 600 and MAX_SIZE 1000, detection buckets
+     608x1024 and 1024x608, the noise in per-orientation buckets:
+     test_net_batched over a numpy-written voc_2007_test of 32 images
+     cycling VOC's shapes (375x500, 500x375, 333x500, 500x333, 366x500,
+     500x400) on sap_median_var0.4 (kernel 1 on canvases),
+     brownian_var0.09 and periodic_var100 (rasters of each valid
+     extent), noise_mix_var_all (the mix scan: threefry, quant) and
+     noise_mix_var_all_bilateral (the scan, then kernel 5) and bloom
+     (kernel 8); over a coco_2014_minival of 24 images cycling COCO's
+     shapes (480x640, 640x480, 427x640, 640x427, 612x612, 375x500) on
+     gaussian_gaus_blur_var0.1 (kernel 2) and original, 81 classes; the
+     VOC set on original with TEST.SCALES (480, 600) (the pyramid);
+     test_net on four VOC images against test_net_batched on the same
+     four (phase 4's tolerance); one res101 training step on the VOC
+     trainval set with noise_mix_var_all (its batch through the masked
+     mix scan; finite losses).  Each run: counters zeroed before and
+     read after, the route's kernels launched, kernel 3 and the walk
+     once a forward and once a chunk, every launch held to its plain
+     version, finite APs (COCO: 12 finite stats); images, buckets,
+     chunks, seconds and img/s logged, and after the timed runs each
+     run's first chunk profiled for the device's idle share (one
+     session, the device's activity only, marker kernels between the
+     runs); kernel 3
+     and the walk timed at the pyramid's and COCO's postprocess shapes;
+  6. where the time goes: one chunk of each string under torch.profiler,
+     the device's activity only (device kernel time, idle share, the
+     port's own kernels' share, split by kernel name with their launches:
+     the threefry draws' device time a chunk gets a line of its own), and of the res101 sap chunk; then
      `cli.demo` again under --profile (sheet, trace file and launches as
      without it; the profiler's start, the profiled block and the trace
      export timed apart); then two training steps under torch.profiler
@@ -163,7 +193,8 @@ from tpudenoise_torch.benchmarks import profile_fused as pf
 from tpudenoise_torch.benchmarks import profile_sap_breakdown as psb
 from tpudenoise_torch.benchmarks.profile_bilateral import (MIX_ENTRIES,
                                                             MIX_PLAN)
-from tpudenoise_torch.benchmarks.timing import card_line, device_ms, time_ms
+from tpudenoise_torch.benchmarks.timing import (MARKER, card_line, device_ms,
+                                              time_ms)
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import default_config, get_output_dir
 from tpudenoise_torch.data import synthetic
@@ -245,6 +276,36 @@ TRANSCENDENTAL = {1, 2, 4, 6, 9, 10}
 
 def log(*a):
     print(*a, flush=True)
+
+
+# each backbone's class-independent seeded init, drawn once: vgg16's
+# truncated normals take seconds of host time, and several phases build
+# the same seeded backbone
+_SEEDED = {}
+
+
+def seeded(model) -> dict:
+    """model.init(torch.Generator().manual_seed(0)), bit for bit, on a
+    model still on the CPU.  init draws the head, the RPN and the tail,
+    then the class heads (`rcnn`); the first three and the generator's
+    state after them are drawn once per backbone and copied."""
+    parts = ('head', 'rpn', 'tail')
+    key = (model.backbone,) + tuple(
+        (k, tuple(v.shape)) for n in parts
+        for k, v in getattr(model, n).state_dict().items())
+    g = torch.Generator().manual_seed(0)
+    if key not in _SEEDED:
+        for n in parts:
+            getattr(model, n).reset_parameters(g)
+        _SEEDED[key] = ({n: copy.deepcopy(getattr(model, n).state_dict())
+                         for n in parts}, g.get_state())
+    else:
+        states, state = _SEEDED[key]
+        for n in parts:
+            getattr(model, n).load_state_dict(states[n])
+        g.set_state(state)
+    model.rcnn.reset_parameters(g)
+    return model.state_dict()
 
 
 def later(*args, **kw):
@@ -848,14 +909,14 @@ def check_small_chunk(dev):
                              ('res50', ('sap_median_var0.4',))):
         model = FasterRCNN(backbone, num_classes=21, cfg=default_config(),
                            dtype=torch.float32)
-        params = model.init(torch.Generator().manual_seed(0))
+        params = seeded(model)
         for d in ('cpu', dev):
             model.to(d)
             p = {k: v.to(d) for k, v in params.items()}
             for noise in noises:
                 out = detect_chunk(model, p, prng.PRNGKey(3), [0, 1],
-                                   raw.to(d), geom.to(d), geom[:, 2:].to(d),
-                                   make_pipeline(noise), bucket)
+                                   raw.to(d), [(geom.to(d), bucket)],
+                                   make_pipeline(noise))
                 res[d, f'{backbone} {noise}'] = [t.cpu().numpy()
                                                  for t in out]
     for noise in sorted({n for _, n in res}):
@@ -933,25 +994,25 @@ def kinds_drawn(noise: str, key, idx) -> dict:
 
 def chunk_inputs(dev, backbone: str):
     """A main path's model (seeded VOC-21 Faster R-CNN, bf16), its params,
-    the (8, 600, 1000, 3) u8 frames, their geometry and the eval key."""
+    the (8, 600, 1000, 3) u8 frames, their one level (geometry, bucket)
+    and the eval key."""
     cfg = default_config()
     model = FasterRCNN(backbone, num_classes=21, cfg=cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = seeded(model)
     model.to(dev)
     params = {k: v.to(dev) for k, v in params.items()}
     rng = np.random.RandomState(3)
     raw = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(
         np.uint8)).to(dev)
     geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=dev)
-    return model, params, raw, geom, geom[:, 2:].contiguous(), prng.PRNGKey(
-        cfg.RNG_SEED)
+    return model, params, raw, [(geom, BUCKET)], prng.PRNGKey(cfg.RNG_SEED)
 
 
 def main_path(inputs, card: str, noises, tag: str = '') -> dict:
     """detect_chunk for each noise string: 3 warm and 5 timed chunks, the
     launch counters zeroed before and read after; results keyed
     `tag + noise`."""
-    model, params, raw, geom, infos, key = inputs
+    model, params, raw, levels, key = inputs
     stages = ('noise', 'prep', 'forward', 'postprocess')
     result = {}
     for noise in noises:
@@ -973,7 +1034,7 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
                 events.append(ev)
 
             boxes, scores, mask = detect_chunk(model, params, key, idx, raw,
-                                               geom, infos, noise_fn, BUCKET,
+                                               levels, noise_fn,
                                                on_stage=mark)
             torch.cuda.synchronize()
             if it >= 3:
@@ -1137,7 +1198,7 @@ def dataset_loop(card: str) -> dict:
     imdb = rrData('test', config=cfg, pixel_dir=pdir)
     model = FasterRCNN('vgg16', num_classes=imdb.num_classes,
                        cfg=default_config())
-    params = model.init(torch.Generator().manual_seed(0))
+    params = seeded(model)
     model.to(DEV)
     params = {k: v.to(DEV) for k, v in params.items()}
     torch.cuda.synchronize()
@@ -1158,7 +1219,7 @@ def dataset_loop(card: str) -> dict:
     geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=DEV)
     boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
         model, params, prng.PRNGKey(cfg.RNG_SEED), list(range(B)), raw,
-        geom, geom[:, 2:], make_pipeline(LOOP_NOISE, mode='TEST'), BUCKET))
+        [(geom, BUCKET)], make_pipeline(LOOP_NOISE, mode='TEST')))
     kept = np.stack([limit_per_image(boxes[j], scores[j], mask[j], 100)
                      for j in range(B)])
     matched, total = _match_dets([_dets(boxes, scores, kept, j, 0)
@@ -1325,8 +1386,7 @@ def cli_inputs() -> dict:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     npz = osp.join(root, 'res101_seeded.npz')
-    save_params_npz(FasterRCNN('res101', num_classes=2).init(
-        torch.Generator().manual_seed(0)), npz)
+    save_params_npz(seeded(FasterRCNN('res101', num_classes=2)), npz)
     data_cfg = default_config()
     data_cfg.ROOT_DIR = root
     synthetic.write_rrdata(root, CLI_IMAGES, (H, W), seed=13, pixel_dir=(
@@ -1426,8 +1486,8 @@ def cli_phase(card: str, inp: dict) -> dict:
                                      for i in range(B)])).to(DEV)
     geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=DEV)
     boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
-        model, params, prng.PRNGKey(cfg.RNG_SEED), list(range(B)), raw, geom,
-        geom[:, 2:], make_pipeline(LOOP_NOISE, mode='TEST'), BUCKET))
+        model, params, prng.PRNGKey(cfg.RNG_SEED), list(range(B)), raw,
+        [(geom, BUCKET)], make_pipeline(LOOP_NOISE, mode='TEST')))
     del model, params
     kept = np.stack([limit_per_image(boxes[j], scores[j], mask[j], 100)
                      for j in range(B)])
@@ -1481,8 +1541,8 @@ def cli_phase(card: str, inp: dict) -> dict:
                            portrait=h0 > w0)
     boxes, scores, mask = (t.cpu().numpy() for t in detect_chunk(
         *model, prng.PRNGKey(dcfg.RNG_SEED), [j],
-        torch.from_numpy(im)[None].to(DEV), geom, geom[:, 2:],
-        make_pipeline(DEMO_NOISE, mode='TEST'), bucket))
+        torch.from_numpy(im)[None].to(DEV), [(geom, bucket)],
+        make_pipeline(DEMO_NOISE, mode='TEST')))
     del model[:]
     got = res['images'][j]
     matched, total = _match_dets(
@@ -1934,17 +1994,17 @@ def train_timing(card: str, cfg) -> dict:
                 solver=s, state=state, key=key, loader=loader, step=step)
 
 
-def train_nms_rows(calls: dict, rows: list, card: str):
-    """Kernel 3 and the walk at the training RPN's size (1 x 12000 boxes,
-    padded to 12288, max_outputs 2000): the first step's recorded inputs,
-    each timed beside its plain version, with its bound; attached to their
-    kernel rows as train_rpn."""
-    (a, k, words), = calls[MASKS][:1]
+def nms_rows(calls: dict, rows: list, card: str, key: str, what: str,
+             pick=lambda launches: launches[0]):
+    """Kernel 3 and the walk at a path's own size: the picked recorded
+    launch's inputs (default the first), each timed beside its plain
+    version, with its bound; attached to their kernel rows under key."""
+    a, k, words = pick(calls[MASKS])
     sboxes, thresh = a[0], a[1]
-    (wa, wk, keep), = calls[WALK][:1]
+    wa, wk, keep = pick(calls[WALK])
     by_name = {r['name']: r for r in rows}
-    by_name[MASKS]['train_rpn'] = dict(
-        shape=list(sboxes.shape),
+    by_name[MASKS][key] = dict(
+        what=what, shape=list(sboxes.shape),
         ms=time_ms(lambda: nms.build_suppression_masks_cuda(sboxes, thresh),
                    20),
         device_ms=later(lambda: nms.build_suppression_masks_cuda(
@@ -1952,8 +2012,8 @@ def train_nms_rows(calls: dict, rows: list, card: str):
         plain_ms=time_ms(lambda: nms.build_suppression_masks(sboxes, thresh),
                          2, 1),
         **mask_bound(sboxes, words))
-    by_name[WALK]['train_rpn'] = dict(
-        shape=list(wa[0].shape), max_outputs=wa[2],
+    by_name[WALK][key] = dict(
+        what=what, shape=list(wa[0].shape), max_outputs=wa[2],
         kept=(keep >= 0).sum().item(),
         ms=time_ms(lambda: nms.greedy_keep(*wa), 20),
         device_ms=later(lambda: nms.greedy_keep(*wa), 20,
@@ -1961,10 +2021,10 @@ def train_nms_rows(calls: dict, rows: list, card: str):
         plain_ms=time_ms(lambda: nms.greedy_keep_plain(*wa), 2, 1),
         **walk_bound(wa[0], nms.greedy_keep_plain(*wa), wa[2]))
     for name in (MASKS, WALK):
-        r = by_name[name]['train_rpn']
-        log(f'{name} at the training RPN size {r["shape"]}: kernel '
-            f'{r["ms"]:.3f} ms, plain {r["plain_ms"]:.2f} ms, bound '
-            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})  [{card}]')
+        r = by_name[name][key]
+        log(f'{name} at {what} {r["shape"]}: kernel {r["ms"]:.3f} ms, '
+            f'plain {r["plain_ms"]:.2f} ms, bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]})  [{card}]')
 
 
 def train_phase(card: str, rows: list) -> dict:
@@ -1987,7 +2047,7 @@ def train_phase(card: str, rows: list) -> dict:
     e, state6, seen6, _, cfg, calls = train_cli(card, inp, 'res101',
                                                 TRAIN_NOISE, 6, 'res101')
     out['train res101 6'] = e
-    train_nms_rows(calls, rows, card)
+    nms_rows(calls, rows, card, 'train_rpn', 'the training RPN size')
     del calls
     e, _, seen8, restored, _, calls = train_cli(card, inp, 'res101',
                                                 TRAIN_NOISE, 8, 'res101')
@@ -2086,7 +2146,7 @@ def check_wavelet(dev, card: str) -> dict:
 
 
 # the grid phase: the fixture's split sizes, iterations and snapshot
-GRID_ITERS, GRID_SNAPSHOT, GRID_TRAIN, GRID_TEST = 20, 10, 16, 20
+GRID_ITERS, GRID_SNAPSHOT, GRID_TRAIN, GRID_TEST = 20, 10, 16, 8
 # kinds whose generic route draws through the threefry kernel
 THREEFRY_KINDS = {Kind.GAUSSIAN, Kind.POISSON, Kind.SAP, Kind.SPECKLE,
                   Kind.UNIFORM, Kind.GAMMA, Kind.RAYLEIGH, Kind.BROWNIAN}
@@ -2146,10 +2206,10 @@ def hold_mix_to_plain(launches, path: str) -> float:
 
 def grid_phase(card: str) -> dict:
     """The noise grid through the port, in process: `noise_grid.main` with
-    res101 (seeded, full width and depth), the fixture at 16 train / 20
-    test images of 240x320 (seed 3), GRID_ITERS iterations with a
-    snapshot every GRID_SNAPSHOT, every GRID string and the three control
-    rows, under build/.  Each row: finite APs in [0, 1]; its route's noise
+    res101 (seeded, full width and depth), the fixture at GRID_TRAIN
+    train / GRID_TEST test images of 240x320 (seed 3), GRID_ITERS
+    iterations with a snapshot every GRID_SNAPSHOT, every GRID string and
+    the three control rows, under build/.  Each row: finite APs in [0, 1]; its route's noise
     kernels launched (and no others), kernel 3 and the walk twice a chunk;
     every launch held to its plain version.  The three gaus_blur rows
     equal.  A second call (one row) restores the finished snapshot and
@@ -2301,6 +2361,454 @@ def grid_phase(card: str) -> dict:
         launches={k: v for k, v in totals.items() if v})}
 
 
+# the shape-diverse eval phase: VOC's and COCO's image shapes, cycled over
+# numpy-written sets; the noise strings of each and the VOC pyramid
+VOC_SHAPES = ((375, 500), (500, 375), (333, 500), (500, 333), (366, 500),
+              (500, 400))
+COCO_SHAPES = ((480, 640), (640, 480), (427, 640), (640, 427), (612, 612),
+               (375, 500))
+VOC_IMAGES, COCO_IMAGES = 32, 24
+VOC_NOISES = ('sap_median_var0.4', 'brownian_var0.09', 'periodic_var100',
+              'noise_mix_var_all', 'noise_mix_var_all_bilateral', 'bloom')
+COCO_NOISES = ('gaussian_gaus_blur_var0.1', 'original')
+PYRAMID_SCALES = (480, 600)
+# test_net's four images: both orientations, giving the set's buckets
+TEST_NET_IMAGES = (0, 1, 4, 5)
+TEST_NET_NOISE = 'sap_median_var0.4'
+SHAPE_TRAIN_NOISE = 'noise_mix_var_all'
+# the kernels each run reports, and the noise kernels its bucketed route
+# must launch (the mix scan never launches the fused mix kernels)
+SHAPE_KERNELS = ('fused_sap_median_batched', 'fused_gaussian_blur', MASKS,
+                 'bilateral_batched', 'bloom_batched', WALK, 'threefry_draw')
+SHAPE_ROUTE = {'sap_median_var0.4': {'fused_sap_median_batched'},
+               'gaussian_gaus_blur_var0.1': {'fused_gaussian_blur'},
+               'brownian_var0.09': {'threefry_draw'},
+               'periodic_var100': set(),
+               'noise_mix_var_all': {'threefry_draw'},
+               'noise_mix_var_all_bilateral': {'threefry_draw',
+                                               'bilateral_batched'},
+               'bloom': {'bloom_batched'},
+               'original': set()}
+# the card-vs-CPU chunks of the new routes: two images, shrunk; each
+# route once (set, noise string, TEST.SCALES, loop)
+SHAPE_SMALL = ((160, 200), (200, 160))
+SHAPE_SMALL_CASES = (
+    ('voc', 'sap_median_var0.4', (160,), 'batched'),
+    ('voc', 'brownian_var0.09', (160,), 'batched'),
+    ('voc', 'bloom', (160,), 'batched'),
+    ('voc', 'noise_mix_var_all_bilateral', (128, 160), 'batched'),
+    ('voc', 'periodic_var100', (160,), 'test_net'),
+    ('coco', 'gaussian_gaus_blur_var0.1', (160,), 'batched'))
+
+
+def shape_data(root: str, shapes, cfg) -> None:
+    """The VOC2007 test and trainval sets (VOC_IMAGES images cycling
+    `shapes[0]`) and the COCO minival set (COCO_IMAGES images cycling
+    `shapes[1]`) under root, their `.npy` pixels where `get_imdb` looks,
+    and VOC's image set test4 of TEST_NET_IMAGES."""
+    import os.path as osp
+
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    voc, coco = shapes
+    for split in ('test', 'trainval'):
+        synthetic.write_voc(root, voc, image_set=split, seed=31,
+                            pixel_dir=default_pixel_dir(f'voc_2007_{split}',
+                                                        cfg))
+    synthetic.write_coco(root, coco, seed=32, pixel_dir=default_pixel_dir(
+        'coco_2014_minival', cfg))
+    with open(osp.join(root, 'VOCdevkit2007', 'VOC2007', 'ImageSets',
+                       'Main', 'test4.txt'), 'w') as f:
+        f.write(''.join(f'{i:06d}\n' for i in TEST_NET_IMAGES
+                        if i < len(voc)))
+
+
+def _loop_dets(imdb, name: str, cfg) -> list:
+    """A loop's detections.pkl: per class, per image (K, 5)."""
+    import os.path as osp
+    import pickle
+    with open(osp.join(get_output_dir(imdb.name, name, cfg),
+                       'detections.pkl'), 'rb') as f:
+        return pickle.load(f)
+
+
+def _match_loops(want, got) -> tuple:
+    """(matched, total) over every (class, image) of two loops'
+    detections, at phase 4's tolerance."""
+    matched = total = 0
+    for a, g in zip(want[1:], got[1:]):
+        m, t = _match_dets([np.asarray(x).reshape(-1, 5) for x in a],
+                           [np.asarray(x).reshape(-1, 5) for x in g])
+        matched, total = matched + m, total + t
+    return matched, total
+
+
+def check_shape_chunks(card: str) -> dict:
+    """The new routes on a small input, card against CPU: two images
+    (160x200 and 200x160, so two noise buckets) of a VOC and a COCO set,
+    seeded vgg16 in f32 (21 and 81 classes), each route once
+    (SHAPE_SMALL_CASES: kernel 1, the generic route and kernel 8 on
+    canvases, the mix scan with kernel 5 under the pyramid's scales 128
+    and 160, test_net, and COCO's kernel 2); >= 95% of the CPU's
+    detections with a card twin (phase 4's tolerance)."""
+    import os.path as osp
+    import shutil
+
+    from tpudenoise_torch.data.factory import get_imdb
+    from tpudenoise_torch.eval.harness import test_net
+    root = osp.join(default_config().ROOT_DIR, 'build',
+                    'chip_smoke_shapes_small')
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    cfg.TEST.SCALES, cfg.TEST.MAX_SIZE = (160,), 200
+    cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N = 256, 64
+    shape_data(root, (SHAPE_SMALL, SHAPE_SMALL), cfg)
+    loops = {'batched': test_net_batched, 'test_net': test_net}
+    cases = [(ds, noise, scales, loops[loop])
+             for ds, noise, scales, loop in SHAPE_SMALL_CASES]
+    models = {}
+    for ds, classes in (('voc', 21), ('coco', 81)):
+        m = FasterRCNN('vgg16', num_classes=classes, cfg=cfg,
+                       dtype=torch.float32)
+        models[ds] = (m, seeded(m))
+    dets = {}
+    for d in ('cpu', DEV):
+        for ds, (m, params) in models.items():
+            m.to(d)
+            models[ds] = (m, {k: v.to(d) for k, v in params.items()})
+        for ds, noise, scales, loop in cases:
+            m, params = models[ds]
+            c = copy.deepcopy(cfg)
+            c.TEST.SCALES = scales
+            imdb = get_imdb('voc_2007_test' if ds == 'voc'
+                            else 'coco_2014_minival', c)
+            imdb.competition_mode(True)
+            name = f'{loop.__name__}_{noise}_{len(scales)}_{d}'
+            kw = {'eval_batch': 2} if loop is test_net_batched else {}
+            loop(m, params, imdb, name, noise, config=c, **kw)
+            dets[d, ds, noise, scales, loop.__name__] = _loop_dets(
+                imdb, name, c)
+    out = {}
+    for ds, noise, scales, loop in cases:
+        k = (ds, noise, scales, loop.__name__)
+        matched, total = _match_loops(dets[('cpu',) + k], dets[(DEV,) + k])
+        what = f'{ds} {loop.__name__} {noise} scales {scales}'
+        log(f'small shape-diverse chunk {what}: {matched}/{total} CPU '
+            f'detections have a card twin within 0.5 px  [{card}]')
+        if total == 0 or matched / total < 0.95:
+            raise AssertionError(f'{what}: card and CPU disagree')
+        out[what] = [matched, total]
+    return out
+
+
+def one_chunk(model, params, imdb, noise: str, cfg):
+    """A closure that runs a loop's first chunk on the card as
+    test_net_batched builds it (the first image's orientation, up to B
+    images of it, edge-padded to its noise bucket)."""
+    from tpudenoise_torch.eval import harness
+    shapes = harness._raw_shapes(imdb)
+    buckets = harness.derive_noise_buckets(shapes)
+
+    def orient(hw):
+        return 'p' if hw[0] > hw[1] else 'l'
+
+    o = orient(shapes[0])
+    idx = [i for i, hw in enumerate(shapes) if orient(hw) == o][:B]
+    raw = torch.from_numpy(np.stack([harness._pad_raw_to_bucket(
+        read_bgr(imdb.image_path_at(i)), buckets[o]) for i in idx])).to(DEV)
+    hw = [shapes[i] for i in idx]
+    levels = harness.chunk_levels(hw, cfg.TEST.SCALES, cfg.TEST.MAX_SIZE,
+                                  None, DEV)
+    fn, key = make_pipeline(noise), prng.PRNGKey(cfg.RNG_SEED)
+
+    def run():
+        return harness.detect_chunk(model, params, key, idx, raw, levels,
+                                    fn, hw)
+
+    return run
+
+
+def idle_shares(runs: dict) -> dict:
+    """Each run once warm, then once more each in one torch.profiler
+    session of the device's activity only (no host events to parse), each
+    run after a marker kernel (`timing.MARKER`) and closed by a
+    synchronize, two markers at either edge (a trace can drop a record at
+    its edge): per run its wall ms, the device ms of the kernels between
+    its marker and the next, and the device's idle share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    marks = [time.perf_counter()]
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    walls = {}
+    marks.append(time.perf_counter())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marks.append(time.perf_counter())
+        torch.cuda._sleep(1)
+        for name, run in runs.items():
+            torch.cuda._sleep(1)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+        for _ in range(2):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marks.append(time.perf_counter())
+    log('idle shares: ' + ', '.join(
+        f'{k} {b - a:.2f} s' for k, a, b in zip(
+            ('warm chunks', 'profiler start', 'profiled chunks',
+             'profiler stop and parse'), marks, marks[1:])))
+    groups, group = [], None
+    for e in kernels:
+        if MARKER in e.name:
+            if group:
+                groups.append(group)
+            group = []
+        elif group is not None:
+            group.append(e.time_range.elapsed_us())
+    if len(groups) != len(runs):
+        raise AssertionError(f'idle shares: the trace splits into '
+                             f'{len(groups)} runs, not {len(runs)}')
+    out = {}
+    for (name, wall), group in zip(walls.items(), groups):
+        busy = sum(group) / 1e3
+        out[name] = dict(wall_ms=wall, device_ms=busy,
+                         idle_share=1.0 - busy / wall)
+    return out
+
+
+def shape_run(card: str, model, params, imdb, noise: str, cfg, name: str,
+              loop=test_net_batched) -> dict:
+    """One loop over a shape-diverse set on the card: the launch counters
+    zeroed before and read after, every launch taped and held to its
+    plain version; the route's noise kernels launched and no fused mix
+    kernel, kernel 3 and the walk once a forward and once a chunk's
+    postprocess; finite APs (VOC) or 12 finite COCO stats."""
+    import os.path as osp
+    import pickle
+
+    from tpudenoise_torch.eval import harness
+    zero_counts()
+    with taped(TRAIN_TAPPED) as calls:
+        kw = {'eval_batch': B} if loop is test_net_batched else {}
+        aps, wall = _timed(lambda: loop(model, params, imdb, name, noise,
+                                        config=cfg, **kw))
+    counts = launch_counts()
+    shapes = harness._raw_shapes(imdb)
+    buckets = harness.derive_noise_buckets(shapes)
+    per = {}
+    for h, w in shapes:
+        o = 'p' if h > w else 'l'
+        per[o] = per.get(o, 0) + 1
+    chunks = (sum(-(-n // B) for n in per.values())
+              if loop is test_net_batched else len(shapes))
+    n_nms = chunks * (len(cfg.TEST.SCALES) + 1)
+    path = f'shapes {name}'
+    want = SHAPE_ROUTE[noise]
+    if (any(not counts[k] for k in want) or counts['fused_mix_noise']
+            or counts['fused_mix_bilateral']
+            or counts[MASKS] != n_nms or counts[WALK] != n_nms):
+        raise AssertionError(f'{path}: launches {counts}, expected '
+                             f'{sorted(want)} and {n_nms} of each NMS '
+                             f'kernel')
+    t1 = time.perf_counter()
+    held = hold_train_to_plain(calls, path, card)
+    hold_s = time.perf_counter() - t1
+    del calls
+    out_dir = get_output_dir(imdb.name, name, cfg)
+    if imdb.name.startswith('coco'):
+        with open(osp.join(out_dir, 'detection_results.pkl'), 'rb') as f:
+            scores = [float(v) for v in pickle.load(f).stats]
+        if len(scores) != 12 or not np.isfinite(scores).all():
+            raise AssertionError(f'{path}: COCO stats {scores}')
+    else:
+        scores = [float(a) for a in aps]
+        if len(scores) != 20 or not all(np.isfinite(a) and 0 <= a <= 1
+                                        for a in scores):
+            raise AssertionError(f'{path}: APs {scores}')
+    launches = {k: counts[k] for k in SHAPE_KERNELS}
+    entry = dict(images=len(shapes), buckets=buckets, chunks=chunks,
+                 wall_s=wall, img_per_s=len(shapes) / wall, hold_s=hold_s,
+                 scores=scores, launches=launches, held=held,
+                 kinds=kinds_drawn(noise, prng.PRNGKey(cfg.RNG_SEED),
+                                   range(len(shapes))))
+    log(f'{path}: {len(shapes)} images, buckets {buckets}, {chunks} '
+        f'chunks, scales {tuple(cfg.TEST.SCALES)}, {wall:.2f} s '
+        f'({len(shapes) / wall:.1f} img/s, read and evaluation included); '
+        + ('COCO stats ' if imdb.name.startswith('coco') else 'mAP ')
+        + f'{np.mean(scores) if len(scores) == 20 else scores[0]:.4f}; '
+        f'launches {json.dumps(launches)}'
+        + (f'; kinds {json.dumps(entry["kinds"])}' if entry['kinds']
+           else '') + f'  [{card}]')
+    return entry
+
+
+def shape_phase(card: str, rows: list) -> dict:
+    """Evaluation on datasets of many image shapes, at full width: a
+    seeded res101 (bf16, full depth) over a numpy-written VOC2007 test
+    set (VOC_IMAGES images in VOC's shapes) on each VOC_NOISES string,
+    over a COCO minival set (COCO_IMAGES images in COCO's shapes, 81
+    classes) on COCO_NOISES, and the VOC set again on `original` under
+    TEST.SCALES = PYRAMID_SCALES; eval batch B, TEST scale 600 and
+    MAX_SIZE 1000, detection buckets 608x1024 and 1024x608, the noise in
+    per-orientation buckets.  Then test_net on TEST_NET_IMAGES against
+    test_net_batched on the same four images (phase 4's tolerance), and
+    one res101 training step on the VOC trainval set with
+    SHAPE_TRAIN_NOISE (its batch through the masked mix scan; finite
+    losses).  Every launch held to its plain version (`shape_run`); kernel
+    3 and the walk timed at the pyramid's and COCO's postprocess shapes;
+    each run's first chunk profiled for the device's idle share after
+    the timed runs."""
+    import os.path as osp
+    import shutil
+
+    from tpudenoise_torch.cli import trainval
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    from tpudenoise_torch.data.factory import get_imdb
+    from tpudenoise_torch.data.voc_like import pascal_voc
+    from tpudenoise_torch.eval.harness import test_net
+    t_phase = time.perf_counter()
+    marks = [t_phase]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    parts = {}
+    small = check_shape_chunks(card)
+    parts['small chunks'] = lap()
+    repo = default_config().ROOT_DIR
+    root = osp.join(repo, 'build', 'chip_smoke_shapes')
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    voc_shapes = [VOC_SHAPES[i % len(VOC_SHAPES)] for i in range(VOC_IMAGES)]
+    coco_shapes = [COCO_SHAPES[i % len(COCO_SHAPES)]
+                   for i in range(COCO_IMAGES)]
+    shape_data(root, (voc_shapes, coco_shapes), cfg)
+    voc = get_imdb('voc_2007_test', cfg)
+    coco = get_imdb('coco_2014_minival', cfg)
+    for d in (voc, coco):
+        d.competition_mode(True)
+        if not d.image_path_at(0).endswith('.npy'):
+            raise AssertionError(f'{d.name}: not on its cached pixels')
+    parts['data'] = lap()
+    models = {}
+    for ds, n in (('voc', voc.num_classes), ('coco', coco.num_classes)):
+        m = FasterRCNN('res101', num_classes=n, cfg=default_config())
+        params = seeded(m)
+        m.to(DEV)
+        models[ds] = (m, {k: v.to(DEV) for k, v in params.items()})
+    parts['models'] = lap()
+    runs, chunk_fns = {}, {}
+    pyr = copy.deepcopy(cfg)
+    pyr.TEST.SCALES = PYRAMID_SCALES
+    plan = ([('voc', voc, n, cfg) for n in VOC_NOISES]
+            + [('coco', coco, n, cfg) for n in COCO_NOISES]
+            + [('voc', voc, 'original', pyr)])
+    for ds, imdb, noise, c in plan:
+        name = (f'{ds} {noise}' + (f' scales {PYRAMID_SCALES}'
+                                   if c is pyr else ''))
+        m, params = models[ds]
+        runs[name] = shape_run(card, m, params, imdb, noise, c,
+                               name.replace(' ', '_'))
+        chunk_fns[name] = one_chunk(m, params, imdb, noise, c)
+    parts['runs'] = lap()
+
+    # kernel 3 and the walk at the pyramid's and COCO's postprocess
+    # shapes: a first-chunk postprocess NMS launch each, timed
+    for name, key in ((f'voc original scales {PYRAMID_SCALES}',
+                       'pyramid_post'), ('coco original', 'coco_post')):
+        with taped({MASKS: TAPPED[MASKS], WALK: TAPPED[WALK]}) as calls:
+            chunk_fns[name]()
+        nms_rows(calls, rows, card, key, name,
+                 pick=lambda launches: max(launches,
+                                           key=lambda c: c[0][0].shape[0]))
+    parts['nms rows'] = lap()
+
+    # test_net on four images against test_net_batched on the same four
+    sub = pascal_voc('test4', '2007', config=cfg,
+                     pixel_dir=default_pixel_dir('voc_2007_test', cfg))
+    sub.competition_mode(True)
+    m, params = models['voc']
+    e1 = shape_run(card, m, params, sub, TEST_NET_NOISE, cfg,
+                   'test_net_sub', loop=test_net)
+    e2 = shape_run(card, m, params, sub, TEST_NET_NOISE, cfg,
+                   'test_net_batched_sub')
+    matched, total = _match_loops(_loop_dets(sub, 'test_net_batched_sub',
+                                             cfg),
+                                  _loop_dets(sub, 'test_net_sub', cfg))
+    if total == 0 or matched / total < 0.95:
+        raise AssertionError(f'test_net: {matched}/{total} detections '
+                             f'match test_net_batched')
+    log(f'test_net on {sub.num_images} VOC images: {matched}/{total} of '
+        f'test_net_batched\'s detections have a twin within 0.5 px  '
+        f'[{card}]')
+    runs[f'test_net {TEST_NET_NOISE}'] = {**e1, 'matched': [matched, total]}
+    runs[f'test_net_batched 4 images {TEST_NET_NOISE}'] = e2
+    parts['test_net'] = lap()
+
+    # one training step on the VOC trainval set through the mix scan
+    argv = ['--net', 'res101', '--cfg', osp.join(repo, 'experiments', 'cfgs',
+                                                 'res101.yml'),
+            '--imdb', 'voc_2007_trainval', '--imdbval', 'voc_2007_trainval',
+            '--iters', '1', '--noise', SHAPE_TRAIN_NOISE, '--tag', 'shapes',
+            '--set', 'DATA_DIR', root, 'ROOT_DIR', root, 'TRAIN.DISPLAY',
+            '1', 'TRAIN.SNAPSHOT_ITERS', '3']
+    masked = []
+    with taped(TRAIN_TAPPED) as calls, recording() as (seen, _), \
+            patched(pipeline._PerImagePipeline, 'masked',
+                    lambda fn: lambda self, *a: masked.append(
+                        self.backend) or fn(self, *a)):
+        _, wall, counts, _ = run_cli(trainval.main, argv)
+    path = f'shapes train res101 {SHAPE_TRAIN_NOISE}'
+    losses = [x['losses'] for x in seen]
+    if len(seen) != 1 or set(masked) != {'cuda:fused_mix'} or not all(
+            np.isfinite(v) for x in losses for v in x.values()):
+        raise AssertionError(f'{path}: {len(seen)} steps, masked '
+                             f'{masked}, losses {losses}')
+    if counts[MASKS] != 1 or counts[WALK] != 1 or \
+            counts['threefry_draw'] < TRAIN_DRAWS['res101']:
+        raise AssertionError(f'{path}: launches {counts}')
+    held = hold_train_to_plain(calls, path, card)
+    del calls
+    launches = {k: counts[k] for k in SHAPE_KERNELS}
+    log(f'{path}: 1 step in {wall:.2f} s (main()), its batch through the '
+        f'masked mix scan; total_loss {losses[0]["total_loss"]:.4f}; '
+        f'launches {json.dumps(launches)}  [{card}]')
+    runs['train res101 1 step'] = dict(wall_s=wall, losses=losses,
+                                       launches=launches, held=held)
+    parts['train step'] = lap()
+
+    # after every timed run: each run's first chunk, profiled
+    for name, r in idle_shares(chunk_fns).items():
+        runs[name]['chunk'] = r
+        log(f'shapes {name}: first chunk {r["wall_ms"]:.2f} ms, device '
+            f'{r["device_ms"]:.2f} ms, idle {r["idle_share"]:.1%}  '
+            f'[{card}]')
+    parts['idle shares'] = lap()
+    totals = {}
+    for r in runs.values():
+        for k, v in r['launches'].items():
+            totals[k] = totals.get(k, 0) + v
+    missing = [k for k in SHAPE_KERNELS if not totals.get(k)]
+    if missing:
+        raise AssertionError(f'shape-diverse eval: {missing} never launched')
+    wall = time.perf_counter() - t_phase
+    log(f'shape-diverse eval phase: {wall:.1f} s ('
+        + ', '.join(f'{k} {v:.1f}' for k, v in parts.items())
+        + f'); launches {json.dumps(totals)}  [{card}]')
+    return {'shape-diverse eval': dict(wall_s=wall, parts_s=parts,
+                                       small=small, runs=runs,
+                                       launches=totals)}
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -2312,14 +2820,15 @@ OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
 
 def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
     """Where a chunk's device time goes: for each noise string, one warm
-    chunk, then 2 chunks (images 24-39) under torch.profiler.  Reports per
-    chunk the wall time (the profiler's own cost included), the device
+    chunk, then one chunk (images 24-31) under torch.profiler, the device's
+    activity only.  Reports the chunk's wall time (the profiler's own cost
+    included), the device
     kernel time, the device's idle share of the wall time, the port's own
     kernels' time and the largest kernels by device time, and the time the
     profiler took to start (the first session in a process sets up
     CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
-    model, params, raw, geom, infos, key = inputs
+    model, params, raw, levels, key = inputs
     out = {}
     for noise in noises:
         fn = make_pipeline(noise)
@@ -2327,21 +2836,19 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
 
         def chunk(it):
             detect_chunk(model, params, key, list(range(B * it, B * it + B)),
-                         raw, geom, infos, fn, BUCKET)
+                         raw, levels, fn)
 
         chunk(2)
         torch.cuda.synchronize()
         t_in = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for it in (3, 4):
-                chunk(it)
+            chunk(3)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 2 * 1e3
+            wall = (time.perf_counter() - t0) * 1e3
         kern = [e for e in prof.key_averages()
                 if e.device_type.name == 'CUDA' and e.self_device_time_total]
-        busy = sum(e.self_device_time_total for e in kern) / 2e3
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
         # the port's own kernels by name (each kernel under the first
         # name it holds): (ms, launches) a chunk
         own_by = {}
@@ -2349,8 +2856,8 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
             k = next((k for k in OWN_KERNELS if k in e.key), None)
             if k:
                 t, c = own_by.get(k, (0.0, 0.0))
-                own_by[k] = (t + e.self_device_time_total / 2e3,
-                             c + e.count / 2)
+                own_by[k] = (t + e.self_device_time_total / 1e3,
+                             c + e.count)
         own = sum(t for t, _ in own_by.values())
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         out[name] = dict(
@@ -2358,7 +2865,7 @@ def profile_paths(inputs, card: str, noises, tag: str = '') -> dict:
             wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
             own_kernels_ms=own, own_by_kernel=own_by,
             kernel_names=len(kern),
-            top=[(e.key[:90], e.self_device_time_total / 2e3, e.count // 2)
+            top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
                  for e in top])
         log(f'profile {name}: profiler start {t0 - t_in:.2f} s; chunk '
             f'{wall:.2f} ms, device {busy:.2f} ms, '
@@ -2394,27 +2901,45 @@ def main() -> int:
     log(f'build: {time.perf_counter() - t0:.1f} s '
         f'(nvcc: {json.dumps(cuda_build.build_seconds)})')
 
+    # each phase's seconds, logged at the end
+    phases, t_last = {}, [time.perf_counter()]
+
+    def done(name):
+        t = time.perf_counter()
+        phases[name] = t - t_last[0]
+        t_last[0] = t
+
+    done('environment and build')
     rows = (check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
             + check_sap_stages(dev))
     wavelet = check_wavelet(dev, card)
+    done('3 kernels')
     check_small_chunk(dev)
+    done('4 small chunks')
     vgg = chunk_inputs(dev, 'vgg16')
     e2e = main_path(vgg, card, NOISES)
-    e2e[ENTRY_PATH] = entry_path(vgg[2], vgg[5])
+    e2e[ENTRY_PATH] = entry_path(vgg[2], vgg[4])
     res = chunk_inputs(dev, 'res101')
     e2e.update(main_path(res, card, RES_NOISES, 'res101 '))
     e2e[PROFILE_PATH] = profiling_path(dev, card)
+    done('5 main paths')
     loop = dataset_loop(card)
     cli = cli_inputs()
     e2e.update(cli_phase(card, cli))
+    done('5 dataset loop and CLIs')
     train_paths, train_info, train_timed = train_phase(card, rows)
     e2e.update(train_paths)
+    done('5b training')
     e2e.update(grid_phase(card))
+    done('5c grid')
+    e2e.update(shape_phase(card, rows))
+    done('5d shapes')
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
     e2e.update(cli_profiled(card, cli))
     train_info['profile'] = train_profiled(card, train_timed)
     del train_timed
+    done('6 profiles')
     # the kernels' device times (`later`): only now, after every timed
     # chunk
     def resolve(d):
@@ -2436,12 +2961,13 @@ def main() -> int:
             + f", plain {r['plain_ms']:.3f}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} main-path launches  [{card}]")
-        if 'train_rpn' in r:
-            t = r['train_rpn']
-            log(f"  {r['name']} at the training RPN size {t['shape']}: "
-                f"kernel {t['ms']:.3f} ms (device {t['device_ms']} ms), "
-                f"plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']})  [{card}]")
+        for key in ('train_rpn', 'pyramid_post', 'coco_post'):
+            if key in r:
+                t = r[key]
+                log(f"  {r['name']} at {t['what']} {t['shape']}: kernel "
+                    f"{t['ms']:.3f} ms (device {t['device_ms']} ms), plain "
+                    f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']})  [{card}]")
         for what, t in r.get('modes', {}).items():
             log(f"  {r['name']} {what}: kernel {t['ms']:.4f} ms (device "
                 f"{t['device_ms']} ms), bound {t['bound_ms']:.4f} ms "
@@ -2457,6 +2983,9 @@ def main() -> int:
                 f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
+    done('6 kernel device times')
+    log('phases (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in phases.items())
+        + f'  [{card}]')
     log(json.dumps({'main_path': e2e, 'dataset_loop': loop,
                     'wavelet': wavelet, 'profile': prof,
                     'training': train_info, 'card': card}, default=str))

@@ -20,7 +20,7 @@ Both CLIs keep a module-level config; each test restores both.  The
 other checks: without CUDA, `--device cuda` (the default) exits non-zero
 naming the GPU; `_log_det_scores` writes the events of
 `tests/test_logging.py::test_eval_det_score_summaries`; `get_imdb` knows
-the JAX package's names.
+the JAX package's names and builds VOC and COCO sets as it does.
 """
 
 import copy
@@ -220,10 +220,36 @@ def test_det_score_summaries(tmp_path):
     assert all(s.step == 4 for s in sc)
 
 
-def test_get_imdb_names_match_jax():
+def test_get_imdb_names_match_jax(tmp_path, monkeypatch):
+    """The same names, and voc_2007_test and coco_2014_minival build on a
+    numpy-written fixture as the JAX package's do (classes, images,
+    roidb), on their cached pixels when every image has one."""
+    import tpudenoise.core.config as jconfig
+    from tpudenoise.data.factory import get_imdb as jax_get_imdb
     from tpudenoise.data.factory import list_imdbs as jax_list_imdbs
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.data import synthetic
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
     from tpudenoise_torch.data.factory import get_imdb, list_imdbs
     assert list_imdbs() == jax_list_imdbs()
-    for name in ('voc_2007_test', 'coco_2014_val'):
-        with pytest.raises(NotImplementedError, match='item 18'):
-            get_imdb(name)
+    root = str(tmp_path)
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    monkeypatch.setattr(jconfig.cfg, 'DATA_DIR', root)
+    shapes = [(60, 80), (80, 60), (50, 70)]
+    synthetic.write_voc(root, shapes,
+                        pixel_dir=default_pixel_dir('voc_2007_test', cfg))
+    synthetic.write_coco(root, shapes)
+    for name in ('voc_2007_test', 'coco_2014_minival'):
+        d, j = get_imdb(name, cfg), jax_get_imdb(name)
+        assert d.name == j.name == name
+        assert list(d.classes) == list(j.classes)
+        assert d.image_index == j.image_index
+        for a, b in zip(d.roidb, j.roidb):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+    assert get_imdb('voc_2007_test', cfg).image_path_at(0).endswith(
+        osp.join('voc_2007_test', '000000.npy'))
+    assert get_imdb('coco_2014_minival', cfg).image_path_at(0).endswith(
+        osp.join('images', 'val2014', 'COCO_val2014_000000000001.jpg'))

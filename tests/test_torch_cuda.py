@@ -905,3 +905,101 @@ def test_train_step_card_matches_cpu(dev):
         w, g = want[k].item(), got[k].item()
         assert abs(g - w) <= 1e-3 * abs(w) + 1e-6, (k, g, w)
     assert new.step == 1
+
+
+@pytest.mark.parametrize('noise', ['noise_mix_var_all',
+                                   'noise_mix_var_all_bilateral',
+                                   'noise_mix_var_low'])
+def test_masked_mix_scan_card_matches_cpu(dev, noise):
+    """The mix routes' masked form (the mix scan: threefry, bloom and
+    quant per drawn image, then the post-pass: the bilateral kernel) on
+    the card against the CPU: the kinds through log/exp/cos and quant's
+    near ties within 1 on 1e-3 of the elements (a mod-256 distance)."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.pipeline import make_pipeline
+    rng = np.random.RandomState(2)
+    hw = np.array([[31, 47], [40, 50], [25, 56], [40, 56], [33, 40],
+                   [20, 30]])
+    imgs = torch.from_numpy(rng.randint(0, 256, (6, 40, 56, 3)).astype(
+        np.uint8))
+    keys = prng.fold_in(prng.PRNGKey(3), np.arange(6))
+    fn = make_pipeline(noise)
+    want = fn.masked(keys, imgs, hw)
+    got = fn.masked(keys, imgs.to(dev), hw).cpu()
+    d = (got.double() - want.double()).abs()
+    d = torch.minimum(d, 256.0 - d)
+    assert d.max() <= 1 and (d > 1e-6).double().mean() <= 1e-3
+
+
+def test_pyramid_postprocess_card_matches_cpu(dev):
+    """postprocess_detections_pyramid on the card (kernel 3 and the walk
+    over B x (C-1) problems of S * R boxes, COCO's 81 classes) against
+    the CPU's dense route: the same masks, boxes within 1e-4."""
+    from tpudenoise_torch.eval.harness import postprocess_detections_pyramid
+    rng = np.random.RandomState(5)
+    b, s, r, c = 2, 2, 40, 81
+    x1, y1 = rng.rand(b, s, r) * 50, rng.rand(b, s, r) * 40
+    rois = np.stack([x1, y1, x1 + 10 + rng.rand(b, s, r) * 30,
+                     y1 + 10 + rng.rand(b, s, r) * 30], -1)
+    probs = rng.dirichlet(np.ones(c), size=(b, s, r))
+    preds = rng.randn(b, s, r, 4 * c) * 0.1
+    mask = rng.rand(b, s, r) > 0.2
+    infos = np.tile(np.float32([[[90, 120, 1.5], [60, 80, 1.0]]]),
+                    (b, 1, 1))
+    args = [torch.from_numpy(np.asarray(a, dtype)) for a, dtype in
+            ((rois, np.float32), (mask, bool), (probs, np.float32),
+             (preds, np.float32), (infos, np.float32))]
+    want = postprocess_detections_pyramid(*args, c, 0.3, 0.001, 100)
+    got = postprocess_detections_pyramid(*(a.to(dev) for a in args), c,
+                                         0.3, 0.001, 100)
+    torch.testing.assert_close(got[2].cpu(), want[2], atol=0, rtol=0)
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-4, rtol=0)
+
+
+def test_shape_diverse_test_net_card_matches_cpu(dev, tmp_path):
+    """test_net_batched and test_net over a numpy-written VOC set of two
+    shapes (two noise buckets) with a two-scale pyramid and the mix
+    scan, card against CPU: >= 95% of the CPU's detections with a card
+    twin within 0.5."""
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.data import synthetic
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    from tpudenoise_torch.data.factory import get_imdb
+    from tpudenoise_torch.eval import harness
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    import os.path as osp
+    import pickle
+    root = str(tmp_path)
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    cfg.TEST.SCALES, cfg.TEST.MAX_SIZE = (128, 160), 200
+    cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N = 256, 64
+    synthetic.write_voc(root, [(160, 200), (200, 160), (150, 200)],
+                        pixel_dir=default_pixel_dir('voc_2007_test', cfg))
+    m = FasterRCNN('vgg16', num_classes=21, cfg=cfg, dtype=torch.float32)
+    params = m.init(torch.Generator().manual_seed(0))
+    dets = {}
+    for d in ('cpu', dev):
+        m.to(d)
+        p = {k: v.to(d) for k, v in params.items()}
+        for loop, kw in (('test_net', {}), ('test_net_batched',
+                                            {'eval_batch': 2})):
+            imdb = get_imdb('voc_2007_test', cfg)
+            imdb.competition_mode(True)
+            name = f'{loop}_{torch.device(d).type}'
+            getattr(harness, loop)(m, p, imdb, name, 'noise_mix_var_all',
+                                   config=cfg, **kw)
+            with open(osp.join(root, 'output', cfg.EXP_DIR, imdb.name, name,
+                               'detections.pkl'), 'rb') as f:
+                dets[loop, torch.device(d).type] = pickle.load(f)
+    for loop in ('test_net', 'test_net_batched'):
+        matched = total = 0
+        for a, g in zip(dets[loop, 'cpu'][1:], dets[loop, 'cuda'][1:]):
+            for x, y in zip(a, g):
+                x, y = np.asarray(x).reshape(-1, 5), np.asarray(y)
+                assert abs(len(x) - len(y)) <= 1
+                for row in x:
+                    total += 1
+                    matched += bool(len(y) and np.abs(
+                        y.reshape(-1, 5) - row).max(1).min() < 0.5)
+        assert total > 0 and matched / total >= 0.95, (loop, matched, total)

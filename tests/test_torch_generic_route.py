@@ -140,8 +140,8 @@ def test_detect_chunk_through_the_bilateral_route():
             return torch.from_numpy(np.array(jfn.keyed(
                 jnp.asarray(keys), jnp.asarray(images.numpy(), jnp.float32))))
 
-    outs = [detect_chunk(model, params, prng.PRNGKey(3), [0, 5], raw, geom,
-                         geom[:, 2:], fn, (48, 64))
+    outs = [detect_chunk(model, params, prng.PRNGKey(3), [0, 5], raw,
+                         [(geom, (48, 64))], fn)
             for fn in (make_pipeline(noise), JaxNoise())]
     for a, b in zip(*outs):
         assert torch.isfinite(a.float()).all()

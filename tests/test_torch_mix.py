@@ -22,12 +22,16 @@ Tolerances, each with its reason:
 * after the bilateral: |diff| <= 1 on <= 1% of the elements.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import tpudenoise.denoise.pallas_bilateral as pbl
+import tpudenoise.noise.pallas_bloom as pb
 import tpudenoise.noise.pallas_mix as pm
 from tpudenoise.noise.spec import Kind, NoiseSpec, parse
 from tpudenoise_torch.core import prng
@@ -257,11 +261,16 @@ def test_fixed_prologue_covers_entries():
 @pytest.fixture
 def mix_interpret(monkeypatch):
     """The JAX mix kernels in interpret mode (the pipeline passes its own
-    interpret flag, so the keyword is forced)."""
+    interpret flag, so the keyword is forced), and the bilateral and
+    bloom kernels of its bucketed (masked) form."""
     for name in ('fused_mix_noise', 'fused_mix_bilateral'):
         fn = getattr(pm, name)
         monkeypatch.setattr(pm, name, (lambda f: lambda *a, **k: f(
             *a, **{**k, 'interpret': True}))(fn))
+    monkeypatch.setattr(pbl, 'bilateral_pallas', functools.partial(
+        pbl.bilateral_pallas, interpret=True))
+    monkeypatch.setattr(pb, 'bloom_pallas', functools.partial(
+        pb.bloom_pallas, interpret=True))
 
 
 @pytest.mark.parametrize('noise', ['noise_mix_var_medium',
@@ -290,8 +299,21 @@ def test_pipeline_keyed_matches_jax(mix_interpret, noise):
     # per-image bounds of the drawn kinds: gaussian floats, brownian and
     # the bilateral differ only at rounding level
     assert d.max() <= 1 and np.mean(d > 1e-6) <= 1e-3
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fn.masked(keys, torch.from_numpy(raw), None)
+    if noise == 'noise_mix_var_medium':
+        return   # its masked form: tests/test_torch_mix_scan.py
+    # the bucketed form at full extent: the mix scan (threefry draws)
+    # and the post-pass, as the JAX package's run_masked, at the same
+    # bounds (a mod-256 distance)
+    full = np.tile(np.int32([H, W]), (len(idx), 1))
+    want = np.asarray(jfn.masked(jkeys, jnp.asarray(raw, jnp.float32),
+                                 jnp.asarray(full)))
+    got = fn.masked(keys, torch.from_numpy(raw), full).numpy()
+    d = np.abs(want.astype(np.float64) - got)
+    d = np.minimum(d, 256.0 - d)
+    print(f'{noise} masked: max |diff| {d.max()}, changed '
+          f'{np.mean(d > 0):.2e}')
+    assert got.shape == want.shape
+    assert d.max() <= 1 and np.mean(d > 1e-6) <= 1e-3
 
 
 def test_mix_routes_and_refusals():

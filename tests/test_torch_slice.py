@@ -60,10 +60,14 @@ def test_slice_matches_jax(env, noise, monkeypatch):
     assert total > 0 and matched / total >= 0.95, (matched, total)
 
 
-def match_row(env, noise, monkeypatch):
-    """Both packages' test_net_batched on `noise`: the count of JAX
-    detections with a port twin within 0.5 px (and score), and the total;
-    asserts the count per (class, image) differs by at most one."""
+def match_row(env, noise, monkeypatch, eval_batch=3, bucket=(160, 224),
+              port_imdb=None, loop='test_net_batched'):
+    """Both packages' test_net_batched (or, with loop='test_net', their
+    one-image loops) on `noise`: the count of JAX detections with a port
+    twin within 0.5 px (and score), and the total; asserts the count per
+    (class, image) differs by at most one.  port_imdb: the port's
+    dataset, made from the port's config (default: the JAX package's
+    rrData, read through cv2)."""
     import jax
     import jax.numpy as jnp
     import tpudenoise.denoise.pallas_bilateral as pbl
@@ -74,7 +78,7 @@ def match_row(env, noise, monkeypatch):
     from tpudenoise.data.voc_like import rrData
     from tpudenoise.models.faster_rcnn import FasterRCNN as JRCNN
     from tpudenoise.noise.pipeline import make_pipeline as jax_make_pipeline
-    from tpudenoise_torch.eval.harness import test_net_batched
+    from tpudenoise_torch.eval import harness
     from tpudenoise_torch.models.convert import from_jax_params
     from tpudenoise_torch.models.faster_rcnn import FasterRCNN
     import torch
@@ -95,19 +99,21 @@ def match_row(env, noise, monkeypatch):
         jax_make_pipeline, use_pallas=True))
 
     jm = JRCNN(backbone='vgg16', num_classes=2, cfg=jc, dtype=jnp.float32)
-    jp = jm.init(jax.random.PRNGKey(0), image_shape=(160, 224))
+    jp = jm.init(jax.random.PRNGKey(0), image_shape=bucket or (160, 224))
     tm = FasterRCNN('vgg16', num_classes=2, cfg=tc, dtype=torch.float32)
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
 
     tag = noise
     d1 = rrData('test', '2021', config=jc)
     d1.competition_mode(True)
-    jharness.test_net_batched(jm, jp, d1, 'jax_' + tag, noise, eval_batch=3,
-                              config=jc, bucket=(160, 224), mesh=None)
-    d2 = rrData('test', '2021', config=jc)
+    batched = {} if loop == 'test_net' else {'eval_batch': eval_batch}
+    getattr(jharness, loop)(jm, jp, d1, 'jax_' + tag, noise, config=jc,
+                            bucket=bucket, **batched,
+                            **({'mesh': None} if batched else {}))
+    d2 = (port_imdb or (lambda c: rrData('test', '2021', config=jc)))(tc)
     d2.competition_mode(True)
-    test_net_batched(tm, params, d2, 'torch_' + tag, noise, eval_batch=3,
-                     config=tc, bucket=(160, 224))
+    getattr(harness, loop)(tm, params, d2, 'torch_' + tag, noise,
+                           config=tc, bucket=bucket, **batched)
 
     def load(name):
         path = osp.join(jc.ROOT_DIR, 'output', jc.EXP_DIR, d1.name, name,
@@ -156,8 +162,8 @@ def test_port_imports_no_jax_and_runs_detect_chunk():
                       'noise_mix_var_medium', 'bloom',
                       'speckle_bilateral_var1.0', 'poisson'):
             boxes, scores, mask = harness.detect_chunk(
-                model, params, prng.PRNGKey(3), [0, 1], raw, geom,
-                geom[:, 2:], make_pipeline(noise), (48, 64))
+                model, params, prng.PRNGKey(3), [0, 1], raw,
+                [(geom, (48, 64))], make_pipeline(noise))
             assert boxes.shape == (2, 2, 100, 4), boxes.shape
             assert torch.isfinite(boxes).all()
         loaded = sorted(m for m, mod in sys.modules.items()

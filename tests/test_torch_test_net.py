@@ -1,0 +1,103 @@
+"""The port's `test_net` (the one-image loop) against the JAX package's
+`test_net` and against the port's own `test_net_batched`, on the CPU.
+
+* At scale 1 (the 120x160 fixture, TEST scale 120, MAX_SIZE 160) the
+  JAX package's host prep (cv2) and the port's device prep are exact, so
+  the loops differ only by the detector's float order: the tolerance of
+  `tests/test_torch_slice.py` (>= 95% of the JAX detections with a port
+  twin within 0.5, counts within one), for a single-kind and a mix
+  string.
+* On a dataset of several shapes (noise buckets, each image's noise
+  cropped back to its raw size) under a two-scale pyramid, `test_net`
+  and `test_net_batched` run the same noise, prep and postprocess, one
+  image a forward against four: the same tolerance, and the APs within
+  it.
+"""
+
+import os.path as osp
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from tests.fixtures import make_rrdata_fixture
+from tests.test_torch_buckets import SIZES, cached_rrdata
+from tests.test_torch_slice import match_row
+
+
+@pytest.fixture(scope='module')
+def env(tmp_path_factory):
+    from tpudenoise.core.config import default_config as jax_default_config
+    from tpudenoise_torch.core.config import default_config
+    root = str(tmp_path_factory.mktemp('ttestnet'))
+    make_rrdata_fixture(root, n_test=3, size=(120, 160))
+    jc, tc = jax_default_config(), default_config()
+    for c in (jc, tc):
+        c.DATA_DIR = c.ROOT_DIR = root
+        c.EXP_DIR = 'test_net'
+        c.TEST.SCALES = (120,)
+        c.TEST.MAX_SIZE = 160
+        c.TEST.RPN_PRE_NMS_TOP_N = 128
+        c.TEST.RPN_POST_NMS_TOP_N = 32
+    return jc, tc
+
+
+@pytest.mark.parametrize('noise', ['sap_median_var0.4',
+                                   'noise_mix_var_medium'])
+def test_test_net_matches_jax_at_scale_1(env, noise, monkeypatch):
+    matched, total = match_row(env, noise, monkeypatch, bucket=(128, 160),
+                               loop='test_net')
+    assert total > 0 and matched / total >= 0.95, (matched, total)
+
+
+def test_test_net_matches_test_net_batched(tmp_path):
+    """Shape-diverse images, TEST.SCALES (48, 64): test_net against
+    test_net_batched (eval batch 4) with the same weights."""
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.eval import harness
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    root = str(tmp_path)
+    make_rrdata_fixture(root, n_test=4, sizes=SIZES[:4])
+    tc = default_config()
+    tc.DATA_DIR = tc.ROOT_DIR = root
+    tc.TEST.SCALES = (48, 64)
+    tc.TEST.MAX_SIZE = 96
+    tc.TEST.RPN_PRE_NMS_TOP_N = 128
+    tc.TEST.RPN_POST_NMS_TOP_N = 32
+    m = FasterRCNN('vgg16', num_classes=2, cfg=tc, dtype=torch.float32)
+    params = m.init(torch.Generator().manual_seed(0))
+    dets, aps = {}, {}
+    for loop, kw in (('test_net', {}),
+                     ('test_net_batched', {'eval_batch': 4})):
+        d = cached_rrdata(tc)
+        d.competition_mode(True)
+        aps[loop] = getattr(harness, loop)(m, params, d, loop,
+                                           'noise_mix_var_medium',
+                                           config=tc, **kw)
+        with open(osp.join(root, 'output', tc.EXP_DIR, d.name, loop,
+                           'detections.pkl'), 'rb') as f:
+            dets[loop] = pickle.load(f)
+    matched = total = 0
+    for a, b in zip(dets['test_net'][1], dets['test_net_batched'][1]):
+        assert abs(len(a) - len(b)) <= 1
+        for row in np.asarray(a).reshape(-1, 5):
+            total += 1
+            matched += bool(len(b) and np.abs(b - row).max(1).min() < 0.5)
+    print(f'{matched}/{total} test_net detections matched')
+    assert total > 0 and matched / total >= 0.95, (matched, total)
+    assert len(aps['test_net']) == 10 and np.isfinite(aps['test_net']).all()
+    np.testing.assert_allclose(aps['test_net'], aps['test_net_batched'],
+                               atol=0.05)
+
+
+def test_test_net_refuses_what_is_not_ported():
+    from tpudenoise_torch.eval.harness import test_net, test_net_batched
+    for kw, item in (({'compute_id': True}, 'item 14'),
+                     ({'fast_rng': True}, 'item 8')):
+        with pytest.raises(NotImplementedError, match=item):
+            test_net(None, None, None, 'w', 'original', **kw)
+    for kw, item in (({'mesh': object()}, 'item 16'),
+                     ({'device_prep': False}, 'item 6B')):
+        with pytest.raises(NotImplementedError, match=item):
+            test_net_batched(None, None, None, 'w', 'original', **kw)

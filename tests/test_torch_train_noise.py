@@ -10,7 +10,7 @@ bilateral route; brownian (prefix sums in another fixed order) within 1
 on < 1e-3 of the elements; gaussian's [0, 1] floats within 2.5e-7 (the
 erf_inv's last ulp).  At full extent (hw = the canvas) masked equals
 keyed bit for bit wherever the JAX package's does.  The mix routes'
-masked raises, naming ROADMAP item 9.
+masked (the mix scan) matches the JAX package's within the same bounds.
 """
 
 import functools
@@ -123,10 +123,21 @@ def test_masked_at_full_extent(noise):
 
 
 def test_mix_masked_raises_naming_item_9():
-    fn = make_pipeline('noise_mix_var_all', mode='TRAIN')
-    imgs, keys = _inputs(1)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        fn.masked(keys, torch.from_numpy(imgs), HW)
+    """The mix routes' masked, once refused naming ROADMAP item 9: a
+    training batch (u8, as the solver passes the loader's batch) through
+    the mix scan against the JAX package's run_masked, within the bounds
+    of the kinds drawn (<= 1 on < 1e-3 of the elements)."""
+    for noise in ('noise_mix_var_all', 'noise_mix_var_all_bilateral'):
+        jfn = jax_make_pipeline(noise, mode='TRAIN', use_pallas=True)
+        fn = make_pipeline(noise, mode='TRAIN')
+        imgs, keys = _inputs(1)
+        want = np.asarray(jfn.masked(jnp.asarray(keys), jnp.asarray(imgs),
+                                     jnp.asarray(HW)))
+        got = fn.masked(keys, torch.from_numpy(imgs.astype(np.uint8)),
+                        HW).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        d = np.abs(want.astype(np.float64) - got)
+        assert d.max() <= 1 and np.mean(d > 0) < 1e-3, noise
 
 
 def test_hw_on_a_device_refused():

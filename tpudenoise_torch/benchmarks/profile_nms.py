@@ -81,8 +81,8 @@ def capture(inputs, noise_fn) -> dict:
     try:
         for stage, (mod, name) in wrapped.items():
             setattr(mod, name, recorder(stage))
-        harness.detect_chunk(model, params, key, list(range(B)), raw, geom,
-                             geom[:, 2:].contiguous(), noise_fn, BUCKET)
+        harness.detect_chunk(model, params, key, list(range(B)), raw,
+                             [(geom, BUCKET)], noise_fn)
         torch.cuda.synchronize()
     finally:
         for stage, (mod, name) in wrapped.items():
@@ -115,12 +115,11 @@ def chunk_rates(inputs, noise_fn) -> dict:
     under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     model, params, raw, geom, key = inputs
-    infos = geom[:, 2:].contiguous()
 
     def chunk(it):
         return harness.detect_chunk(model, params, key,
                                     list(range(B * it, B * it + B)), raw,
-                                    geom, infos, noise_fn, BUCKET)
+                                    [(geom, BUCKET)], noise_fn)
 
     walls = []
     for it in range(8):

@@ -157,7 +157,7 @@ def main(argv=None):
             noisy = noise_chunk(key, [idx], torch.from_numpy(im)[None].to(
                 device), noise_fn)
             bx, sc, mk = (t[0].cpu().numpy() for t in detect_noisy(
-                model, params, noisy, geom, geom[:, 2:], bucket))
+                model, params, noisy, [(geom, bucket)]))
             vis = np.clip(noisy[0].float().cpu().numpy(), 0, 255).astype(
                 np.uint8)
             n_drawn = 0

@@ -6,8 +6,11 @@ same flags and defaults, a `.npz` of weights, and the eval harness.
         --model weights.npz --noise sap_median_var0.4 --eval-batch 8 \\
         [--device cuda|cpu] [--profile DIR] [--set KEY VALUE ...]
 
-`--device cuda` (the default) needs a CUDA GPU and never falls back to the
-CPU.  Weights come as a `.npz` in the shared layout (written by
+`--eval-batch 1` (the default) runs `test_net`, the one-image loop, and
+larger batches `test_net_batched`; `--set TEST.SCALES "(480, 600)"` runs a
+test pyramid; `voc_*` and `coco_*` datasets come in many image shapes,
+which both loops take through noise buckets.  `--device cuda` (the
+default) needs a CUDA GPU and never falls back to the CPU.  Weights come as a `.npz` in the shared layout (written by
 `tpudenoise.models.convert.save_params_npz` on a host with JAX, or by
 `tpudenoise_torch.models.convert.save_params_npz`); a backbone-only file
 is merged over the seeded init.  On a machine without cv2, the dataset's
@@ -43,18 +46,20 @@ def parse_args(argv=None):
     p.add_argument('--strict-ref', action='store_true',
                    help='reproduce the reference test-path quirks')
     p.add_argument('--compute-id', action='store_true',
-                   help='TwoNN intrinsic dimension (not ported: ROADMAP '
-                        'Queue 1 item 14)')
+                   help='TwoNN intrinsic dimension (not ported yet: '
+                        'ROADMAP Queue 1 item 14)')
     p.add_argument('--profile', default=None, metavar='DIR',
                    help='write a torch.profiler Chrome trace of the eval '
                         'into DIR')
     p.add_argument('--fast-rng', action='store_true',
-                   help='counter-hash draws (not ported: Queue 1 item 8)')
+                   help='counter-hash draws for every generator (not '
+                        'ported yet: ROADMAP Queue 1 item 8)')
     p.add_argument('--host-prep', action='store_true',
-                   help='host cv2 prep (not ported: Queue 1 item 6B)')
+                   help='cv2 resize on the host (not ported yet: ROADMAP '
+                        'Queue 1 item 6B, host prep)')
     p.add_argument('--eval-batch', type=int, default=1,
-                   help='images a chunk; 1 runs the batched harness one '
-                        'image a chunk with device prep')
+                   help='images a chunk of the batched harness; 1 runs '
+                        'test_net, the one-image loop')
     p.add_argument('--distributed', action='store_true',
                    help='multi-host eval (not ported: Queue 1 item 16)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
@@ -109,7 +114,7 @@ def main(argv=None):
     import torch
     from tpudenoise_torch.core.config import cfg, cfg_from_file, cfg_from_list
     from tpudenoise_torch.data.factory import get_imdb
-    from tpudenoise_torch.eval.harness import test_net_batched
+    from tpudenoise_torch.eval.harness import test_net, test_net_batched
     from tpudenoise_torch.models.faster_rcnn import FasterRCNN
     from tpudenoise_torch.utils.profiling import trace
 
@@ -133,16 +138,15 @@ def main(argv=None):
     model.to(device)
     params = {k: v.to(device) for k, v in params.items()}
     weights_name = (args.tag or tag or 'default').replace('/', '_')
-    if args.eval_batch == 1:
-        print('--eval-batch 1: the batched harness one image a chunk, with '
-              'device prep (the JAX package runs test_net, which preps on '
-              'the host with cv2; the two differ only by the resize\'s '
-              'float tail, nothing at scale 1)')
     with trace(args.profile):
-        return test_net_batched(model, params, imdb_obj, weights_name,
-                                args.noise, eval_batch=args.eval_batch,
-                                max_per_image=args.max_per_image, config=cfg,
-                                strict_ref=args.strict_ref)
+        if args.eval_batch > 1:
+            return test_net_batched(model, params, imdb_obj, weights_name,
+                                    args.noise, eval_batch=args.eval_batch,
+                                    max_per_image=args.max_per_image,
+                                    config=cfg, strict_ref=args.strict_ref)
+        return test_net(model, params, imdb_obj, weights_name, args.noise,
+                        max_per_image=args.max_per_image, config=cfg,
+                        strict_ref=args.strict_ref)
 
 
 if __name__ == '__main__':

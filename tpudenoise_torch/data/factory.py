@@ -3,12 +3,11 @@
 val,trainval,test}, voc_{2007,2012}_{train,val,trainval,test} and the
 coco_2014/2015 splits.
 
-rrData reads `.npy` pixels from `cache_pixels.default_pixel_dir(name,
+Each dataset reads `.npy` pixels from `cache_pixels.default_pixel_dir(name,
 config)` when that directory holds every image of the set (as `python -m
-tpudenoise_torch.data.cache_pixels` writes it on a host with cv2), else
-its JPEGs, which `utils.image_io.read_bgr` decodes through cv2 (absent on
-the GPU machine).  pascal_voc and COCO are not ported yet: their names
-raise NotImplementedError naming ROADMAP Queue 1 item 18.
+tpudenoise_torch.data.cache_pixels --imdb NAME` writes it on a host with
+cv2), else its JPEGs, which `utils.image_io.read_bgr` decodes through cv2
+(absent on the GPU machine).
 """
 
 from __future__ import annotations
@@ -17,53 +16,47 @@ import os.path as osp
 
 from tpudenoise_torch.core.config import cfg as default_cfg
 from tpudenoise_torch.data.cache_pixels import default_pixel_dir
-from tpudenoise_torch.data.voc_like import rrData
+from tpudenoise_torch.data.coco import coco
+from tpudenoise_torch.data.voc_like import pascal_voc, rrData
 
+# name -> (config, pixel_dir) -> dataset
 __sets = {}
 
-
-def _rrdata(split: str, year: str, config):
-    d = rrData(split, year, config=config)
-    pdir = default_pixel_dir(d.name, config)
-    if all(osp.exists(osp.join(pdir, index + '.npy'))
-           for index in d.image_index):
-        d = rrData(split, year, config=config, pixel_dir=pdir)
-    return d
-
-
-def _not_ported(name: str, what: str):
-    def make(config):
-        raise NotImplementedError(
-            f'{name}: {what} is not ported yet (ROADMAP Queue 1 item 18)')
-    return make
-
+for year in ['2007', '2012']:
+    for split in ['train', 'val', 'trainval', 'test']:
+        __sets[f'voc_{year}_{split}'] = (
+            lambda config, pdir, split=split, year=year: pascal_voc(
+                split, year, config=config, pixel_dir=pdir))
 
 for year in ['2021']:
     for split in ['train', 'val', 'trainval', 'test']:
         __sets[f'rrData_{year}_{split}'] = (
-            lambda config, split=split, year=year: _rrdata(split, year,
-                                                           config))
-
-for year in ['2007', '2012']:
-    for split in ['train', 'val', 'trainval', 'test']:
-        name = f'voc_{year}_{split}'
-        __sets[name] = _not_ported(name, 'pascal_voc')
+            lambda config, pdir, split=split, year=year: rrData(
+                split, year, config=config, pixel_dir=pdir))
 
 for year, splits in (('2014', ['train', 'val', 'minival',
                                'valminusminival']),
                      ('2015', ['test', 'test-dev'])):
     for split in splits:
-        name = f'coco_{year}_{split}'
-        __sets[name] = _not_ported(name, 'COCO')
+        __sets[f'coco_{year}_{split}'] = (
+            lambda config, pdir, split=split, year=year: coco(
+                split, year, config=config, pixel_dir=pdir))
 
 
-def get_imdb(name: str, config=None):
+def get_imdb(name: str, config=None, pixels: bool = True):
     """The dataset `name`, built with `config` (default: the module-level
-    `cfg` of `core/config.py`, which the CLIs overlay)."""
+    `cfg` of `core/config.py`, which the CLIs overlay); with pixels, on
+    its cached `.npy` pixels when every image has one."""
     if name not in __sets:
         raise KeyError(f'Unknown dataset: {name}. '
                        f'Known: {sorted(__sets)}')
-    return __sets[name](config or default_cfg)
+    config = config or default_cfg
+    d = __sets[name](config, None)
+    pdir = default_pixel_dir(d.name, config)
+    if pixels and all(osp.exists(osp.join(pdir, d.image_stem_at(i) + '.npy'))
+                      for i in range(d.num_images)):
+        d = __sets[name](config, pdir)
+    return d
 
 
 def list_imdbs():

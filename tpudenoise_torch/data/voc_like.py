@@ -1,15 +1,14 @@
-"""VOC-layout datasets: the rrData ("person") dataset.
+"""VOC-layout datasets: PASCAL VOC and the rrData ("person") dataset.
 
-A copy of `tpudenoise/data/voc_like.py` (`VocStyleDataset`, `rrData`) and
-of the training half of `tpudenoise/data/imdb.py`, which the port may not
-import: XML annotations, txt image sets, the gt roidb (pickled under
-DATA_DIR/cache), horizontal flips (`append_flipped_images`, widths from
-`utils.image_io.image_hw`), `merge_roidbs`, per-class VOC results files
-and the python AP evaluation (rrData sweeps IoU 0.50:0.05:0.95, ref
-rrData.py:246-269).  Left out: rpn/proposal roidbs, proposal recall, the
-MATLAB bridge and the metrics logger; `_do_python_eval` prints the APs.
+A copy of `tpudenoise/data/voc_like.py` (`VocStyleDataset`, `rrData`,
+`pascal_voc`), which the port may not import, on the port's `imdb` base
+(`data/imdb.py`): XML annotations, txt image sets, the gt roidb (pickled
+under DATA_DIR/cache), per-class VOC results files and the python AP
+evaluation (rrData sweeps IoU 0.50:0.05:0.95, ref rrData.py:246-269;
+pascal_voc evaluates at 0.5).  Left out: rpn/proposal roidbs, the MATLAB
+bridge and the metrics logger; `_do_python_eval` prints the APs.
 
-`rrData(..., pixel_dir=...)` points `image_path_at` at `.npy` pixels that
+`pixel_dir=...` points `image_path_at` at `.npy` pixels that
 `tpudenoise_torch.data.cache_pixels` decoded from the JPEGs, which the GPU
 machine (no cv2, no PIL) reads through `utils.image_io`.
 """
@@ -25,8 +24,8 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from tpudenoise_torch.core.config import default_config
+from tpudenoise_torch.data.imdb import imdb
 from tpudenoise_torch.eval.voc_eval import voc_eval
-from tpudenoise_torch.utils.image_io import image_hw
 
 # the VOC-21 classes, the demo's default
 VOC_CLASSES = ('__background__', 'aeroplane', 'bicycle', 'bird', 'boat',
@@ -35,65 +34,23 @@ VOC_CLASSES = ('__background__', 'aeroplane', 'bicycle', 'bird', 'boat',
                'pottedplant', 'sheep', 'sofa', 'train', 'tvmonitor')
 
 
-class VocStyleDataset:
-    """Common VOC-layout dataset (the imdb protocol the harness reads:
-    `name`, `num_classes`, `num_images`, `image_path_at`,
-    `evaluate_detections`).  Subclasses define paths and classes."""
+class VocStyleDataset(imdb):
+    """Common VOC-layout dataset.  Subclasses define paths and classes.
+    With pixel_dir, image i is read from pixel_dir/<index>.npy."""
 
-    def __init__(self, name, image_set, year, classes, config=None):
-        self._cfg = config or default_config()
-        self._name = name
-        self._classes = list(classes)
+    def __init__(self, name, image_set, year, classes, config=None,
+                 pixel_dir=None):
+        super().__init__(name, classes, config)
         self._year = year
         self._image_set = image_set
-        self._image_ext = '.jpg'
+        self._pixel_dir = pixel_dir
+        self._image_ext = '.jpg' if pixel_dir is None else '.npy'
         self._salt = str(uuid.uuid4())
         self._comp_id = 'comp4'
         self.config = {'cleanup': True, 'use_salt': True,
                        'use_diff': False}
         self._image_index = self._load_image_set_index()
-        self._roidb = None
         self._roidb_handler = self.gt_roidb
-
-    # ---- identity ----
-    @property
-    def name(self):
-        return self._name
-
-    @property
-    def classes(self):
-        return self._classes
-
-    @property
-    def num_classes(self):
-        return len(self._classes)
-
-    @property
-    def image_index(self):
-        return self._image_index
-
-    @property
-    def num_images(self):
-        return len(self._image_index)
-
-    @property
-    def cache_path(self):
-        path = osp.join(self._cfg.DATA_DIR, 'cache')
-        os.makedirs(path, exist_ok=True)
-        return path
-
-    # ---- roidb ----
-    def set_proposal_method(self, method: str):
-        if method != 'gt':
-            raise NotImplementedError(
-                f'proposal method {method!r}: only the gt roidb is ported')
-        self._roidb_handler = self.gt_roidb
-
-    @property
-    def roidb(self):
-        if self._roidb is None:
-            self._roidb = self._roidb_handler()
-        return self._roidb
 
     def gt_roidb(self):
         """Each image's annotation as a roidb entry, cached as a pickle in
@@ -136,39 +93,6 @@ class VocStyleDataset:
                 'gt_overlaps': overlaps, 'flipped': False,
                 'seg_areas': seg_areas}
 
-    def append_flipped_images(self):
-        """Append a horizontally flipped copy of every entry and double
-        the image index."""
-        num_images = self.num_images
-        widths = [image_hw(self.image_path_at(i))[1]
-                  for i in range(num_images)]
-        for i in range(num_images):
-            boxes = self.roidb[i]['boxes'].copy()
-            oldx1 = boxes[:, 0].copy()
-            oldx2 = boxes[:, 2].copy()
-            boxes[:, 0] = widths[i] - oldx2 - 1
-            boxes[:, 2] = widths[i] - oldx1 - 1
-            assert (boxes[:, 2] >= boxes[:, 0]).all()
-            self.roidb.append({'boxes': boxes,
-                               'gt_overlaps': self.roidb[i]['gt_overlaps'],
-                               'gt_classes': self.roidb[i]['gt_classes'],
-                               'seg_areas': self.roidb[i]['seg_areas'],
-                               'flipped': True})
-        self._image_index = self._image_index * 2
-
-    @staticmethod
-    def merge_roidbs(a, b):
-        assert len(a) == len(b)
-        for i in range(len(a)):
-            a[i]['boxes'] = np.vstack((a[i]['boxes'], b[i]['boxes']))
-            a[i]['gt_classes'] = np.hstack((a[i]['gt_classes'],
-                                            b[i]['gt_classes']))
-            a[i]['gt_overlaps'] = np.vstack((a[i]['gt_overlaps'],
-                                             b[i]['gt_overlaps']))
-            a[i]['seg_areas'] = np.hstack((a[i]['seg_areas'],
-                                           b[i]['seg_areas']))
-        return a
-
     # ---- path schema and AP rules (defined per dataset) ----
     def _image_dir(self):
         raise NotImplementedError
@@ -185,12 +109,23 @@ class VocStyleDataset:
     def _cachedir(self):
         raise NotImplementedError
 
+    def _iou_thresholds(self):
+        return [0.5]
+
+    def _use_07_metric(self):
+        return int(self._year) < 2010
+
     # ---- loading ----
+    def image_stem_at(self, i) -> str:
+        """Image i's file name without extension: its index."""
+        return self._image_index[i]
+
     def image_path_at(self, i):
         return self.image_path_from_index(self._image_index[i])
 
     def image_path_from_index(self, index):
-        path = osp.join(self._image_dir(), index + self._image_ext)
+        path = osp.join(self._pixel_dir or self._image_dir(),
+                        index + self._image_ext)
         assert osp.exists(path), f'Path does not exist: {path}'
         return path
 
@@ -282,16 +217,11 @@ class rrData(VocStyleDataset):
         config = config or default_config()
         self._devkit_path = osp.join(config.DATA_DIR, '6thfloorData')
         self._data_path = osp.join(self._devkit_path, '6thFloorTest')
-        self._pixel_dir = pixel_dir
         name = f'rrData_{year}_{image_set}' + ('_diff' if use_diff else '')
         super().__init__(name, image_set, year,
-                         ('__background__', 'person'), config)
-        if pixel_dir is not None:
-            self._image_ext = '.npy'
+                         ('__background__', 'person'), config, pixel_dir)
 
     def _image_dir(self):
-        if self._pixel_dir is not None:
-            return self._pixel_dir
         return osp.join(self._data_path, 'JPEGImages')
 
     def _anno_path(self, index='{:s}'):
@@ -313,3 +243,37 @@ class rrData(VocStyleDataset):
 
     def _use_07_metric(self):
         return int(self._year) < 2022  # rrData.py:243
+
+
+class pascal_voc(VocStyleDataset):
+    """Stock VOC2007/2012 (ref lib/datasets/pascal_voc.py): root
+    DATA_DIR/VOCdevkit<year>/VOC<year>, AP at IoU 0.5 with the VOC07
+    11-point metric before 2010.  With pixel_dir, image i is read from
+    pixel_dir/<index>.npy."""
+
+    def __init__(self, image_set, year, use_diff=False, config=None,
+                 pixel_dir=None):
+        config = config or default_config()
+        self._devkit_path = osp.join(config.DATA_DIR, 'VOCdevkit' + year)
+        self._data_path = osp.join(self._devkit_path, 'VOC' + year)
+        name = f'voc_{year}_{image_set}' + ('_diff' if use_diff else '')
+        super().__init__(name, image_set, year, VOC_CLASSES, config,
+                         pixel_dir)
+        self.config['use_diff'] = use_diff
+
+    def _image_dir(self):
+        return osp.join(self._data_path, 'JPEGImages')
+
+    def _anno_path(self, index='{:s}'):
+        return osp.join(self._data_path, 'Annotations', index + '.xml')
+
+    def _image_set_file(self):
+        return osp.join(self._data_path, 'ImageSets', 'Main',
+                        self._image_set + '.txt')
+
+    def _results_dir(self):
+        return osp.join(self._devkit_path, 'results', 'VOC' + self._year,
+                        'Main')
+
+    def _cachedir(self):
+        return osp.join(self._devkit_path, 'annotations_cache')

@@ -1,16 +1,21 @@
-"""Batched evaluation (counterpart of `tpudenoise/eval/harness.py`).
+"""Evaluation (counterpart of `tpudenoise/eval/harness.py`).
 
 One eval chunk is `detect_chunk`: per-image `fold_in` keys -> fused noise
-kernel -> device prep (mean-subtract, bilinear rescale, bucket pad) ->
-batched detector forward (packed NMS kernel inside) -> per-class NMS.
-`test_net_batched` runs it over a dataset on its single-scale,
-device-prep, single-device path.
+kernel -> per test scale, device prep (mean-subtract, bilinear rescale,
+bucket pad) and the batched detector forward (packed NMS kernel inside)
+-> one per-class NMS (over the union of the scales' candidates for a
+TEST.SCALES pyramid).  `test_net_batched` runs chunks over a dataset on
+one device with device prep, datasets of several image shapes (VOC, COCO)
+through per-orientation noise buckets and the bucketed (masked) noise.
+`test_net` is the reference's one-image loop.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,6 +51,18 @@ def set_matmul_precision():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _decode(rois, bbox_pred, im_info):
+    """Class boxes of (N, R, 4) rois and (N, R, 4C) deltas in
+    original-image coordinates: each row through its own im_info (N, 3)
+    scale, clipped below and to the original extent."""
+    scale = im_info[:, 2]
+    boxes = rois / scale[:, None, None]
+    pred = bbox_transform_inv(boxes, bbox_pred)
+    orig_hw = (torch.round(im_info[:, 0] / scale),
+               torch.round(im_info[:, 1] / scale))
+    return clip_boxes_lower_only(pred, orig_hw)
+
+
 def postprocess_detections(rois, roi_mask, cls_prob, bbox_pred, im_info,
                            num_classes: int, nms_thresh: float,
                            score_thresh: float, max_per_class: int = 100):
@@ -53,25 +70,34 @@ def postprocess_detections(rois, roi_mask, cls_prob, bbox_pred, im_info,
     per-class NMS, batched: rois (B, R, 4), roi_mask (B, R), cls_prob
     (B, R, C), bbox_pred (B, R, 4C), im_info (B, 3).  Returns boxes
     (B, C-1, M, 4), scores (B, C-1, M) and mask (B, C-1, M) for the
-    foreground classes."""
-    scale = im_info[:, 2]
-    boxes = rois / scale[:, None, None]
-    pred = bbox_transform_inv(boxes, bbox_pred)
-    orig_hw = (torch.round(im_info[:, 0] / scale),
-               torch.round(im_info[:, 1] / scale))
-    pred = clip_boxes_lower_only(pred, orig_hw)
-    b, r = rois.shape[:2]
-    pred = pred.reshape(b, r, num_classes, 4)
-    return _per_class_nms(pred, cls_prob, roi_mask, nms_thresh,
-                          score_thresh, max_per_class)
+    foreground classes.  The one-level case of
+    `postprocess_detections_pyramid`."""
+    return postprocess_detections_pyramid(
+        rois[:, None], roi_mask[:, None], cls_prob[:, None],
+        bbox_pred[:, None], im_info[:, None], num_classes, nms_thresh,
+        score_thresh, max_per_class)
 
 
-def _per_class_nms(pred, cls_prob, roi_mask, nms_thresh, score_thresh,
-                   max_per_class):
-    """One NMS batched over (image, foreground class)."""
-    boxes = pred[:, :, 1:].permute(0, 2, 1, 3)              # (B, C-1, R, 4)
-    scores = cls_prob[:, :, 1:].permute(0, 2, 1)           # (B, C-1, R)
-    valid = roi_mask[:, None, :] & (scores > score_thresh)
+def postprocess_detections_pyramid(rois, roi_masks, cls_probs, bbox_preds,
+                                   im_infos, num_classes: int,
+                                   nms_thresh: float, score_thresh: float,
+                                   max_per_class: int = 100):
+    """The multi-scale merge, batched: decode each pyramid level through
+    its own scale into original-image coordinates, pool the levels'
+    candidates, then one per-class NMS over the union (B x (C-1)
+    problems of S * R boxes).  Level arrays are stacked on axis 1: rois
+    (B, S, R, 4), roi_masks (B, S, R), cls_probs (B, S, R, C),
+    bbox_preds (B, S, R, 4C), im_infos (B, S, 3).  Returns as
+    `postprocess_detections`."""
+    b, s, r = rois.shape[:3]
+    pred = _decode(rois.reshape(b * s, r, 4),
+                   bbox_preds.reshape(b * s, r, -1),
+                   im_infos.reshape(b * s, 3))
+    pred = pred.reshape(b, s * r, num_classes, 4)
+    boxes = pred[:, :, 1:].permute(0, 2, 1, 3)              # (B, C-1, N, 4)
+    scores = cls_probs.reshape(b, s * r, num_classes)[:, :, 1:].permute(
+        0, 2, 1)                                            # (B, C-1, N)
+    valid = roi_masks.reshape(b, 1, s * r) & (scores > score_thresh)
     keep, kmask = nms_fixpoint(boxes, scores, nms_thresh, max_per_class,
                                valid=valid)
     safe = keep.clamp(min=0).to(torch.int64)
@@ -91,55 +117,152 @@ def limit_per_image(boxes_c, scores_c, mask_c, max_per_image: int):
     return mask_c
 
 
-def noise_chunk(key, idx, raw_u8: torch.Tensor, noise_fn) -> torch.Tensor:
+def derive_noise_buckets(shapes):
+    """The noise buckets of a set of raw (h, w) image shapes: None when
+    every image shares one shape, else one bucket per orientation
+    ('p' for h > w, 'l' otherwise), the largest extent of that
+    orientation's shapes."""
+    if len(set(shapes)) <= 1:
+        return None
+    buckets = {}
+    for h, w in shapes:
+        o = 'p' if h > w else 'l'
+        bh, bw = buckets.get(o, (0, 0))
+        buckets[o] = (max(bh, h), max(bw, w))
+    return buckets
+
+
+def _pad_raw_to_bucket(im: np.ndarray, bucket) -> np.ndarray:
+    """Edge-pad a raw (h, w, 3) image to the noise bucket, so that the
+    denoise stencils see plausible pixels at the valid boundary (the pad
+    is cropped away after the noise)."""
+    h, w = im.shape[:2]
+    bh, bw = bucket
+    return np.pad(im, ((0, bh - h), (0, bw - w), (0, 0)), mode='edge')
+
+
+def noise_chunk(key, idx, raw_u8: torch.Tensor, noise_fn,
+                hw=None) -> torch.Tensor:
     """detect_chunk's noise stage: one `fold_in` key per image index of
-    idx, then noise_fn's keyed noise over raw_u8 (B, H, W, 3)."""
-    return noise_fn.keyed(prng.fold_in(key, np.asarray(idx)), raw_u8)
+    idx, then noise_fn's keyed noise over raw_u8 (B, H, W, 3), or with
+    hw (each image's valid (h, w), host ints) its bucketed form over
+    edge-padded canvases."""
+    keys = prng.fold_in(key, np.asarray(idx))
+    if hw is None:
+        return noise_fn.keyed(keys, raw_u8)
+    return noise_fn.masked(keys, raw_u8, hw)
 
 
-def detect_noisy(model, params, noisy: torch.Tensor, geom: torch.Tensor,
-                 infos: torch.Tensor, bucket: tuple, thresh: float = 0.0,
-                 max_per_image: int = 100, on_stage=None):
-    """detect_chunk's stages after the noise: device prep of the noisy
-    (B, H, W, 3) frames into bucket, the forward and the per-class NMS.
-    on_stage as in detect_chunk ('prep', 'forward', 'postprocess')."""
+def chunk_levels(shapes, t_sizes, m_size: int, bucket, device) -> list:
+    """The levels of a chunk of raw (h, w) shapes of one orientation, one
+    per test scale ts of t_sizes: (geom, bucket), geom (B, 5) f32 rows
+    (h0, w0, oh, ow, scale) and bucket the given one or that
+    orientation's at ts.  Each image is checked against its bucket: one
+    too small would cut the image's edge while im_info still reports
+    (oh, ow)."""
+    portrait = shapes[0][0] > shapes[0][1]
+    levels = []
+    for ts in t_sizes:
+        img_bucket = bucket or derive_bucket(ts, m_size, portrait=portrait)
+        rows = []
+        for h0, w0 in shapes:
+            s, oh, ow = rescale_geometry(h0, w0, ts, m_size)
+            if oh > img_bucket[0] or ow > img_bucket[1]:
+                raise ValueError(f'image {oh}x{ow} exceeds bucket '
+                                 f'{img_bucket}')
+            rows.append((h0, w0, oh, ow, s))
+        levels.append((torch.tensor(rows, dtype=torch.float32,
+                                    device=device), img_bucket))
+    return levels
+
+
+def detect_noisy(model, params, noisy: torch.Tensor, levels,
+                 thresh: float = 0.0, max_per_image: int = 100,
+                 on_stage=None):
+    """detect_chunk's stages after the noise: for each level (geom,
+    bucket) of levels (`chunk_levels`; one per test scale), device prep
+    of the noisy (B, H, W, 3) frames into that level's bucket and the
+    forward; then `postprocess_detections_pyramid` over the levels (for
+    one level, `postprocess_detections`).  on_stage as in detect_chunk
+    ('prep' and 'forward' once a level, then 'postprocess')."""
     mark = on_stage or (lambda name: None)
-    imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
-    mark('prep')
-    out = model.forward_test(params, imgs, infos)
-    mark('forward')
-    res = postprocess_detections(
-        out['rois'], out['roi_mask'], out['cls_prob'], out['bbox_pred'],
-        infos, model.num_classes, model.cfg.TEST.NMS, thresh,
+    outs = []
+    for geom, bucket in levels:
+        imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
+        mark('prep')
+        outs.append(model.forward_test(params, imgs, geom[:, 2:]))
+        mark('forward')
+
+    def stack(name):
+        return torch.stack([o[name] for o in outs], 1)
+
+    res = postprocess_detections_pyramid(
+        stack('rois'), stack('roi_mask'), stack('cls_prob'),
+        stack('bbox_pred'), torch.stack([g[:, 2:] for g, _ in levels], 1),
+        model.num_classes, model.cfg.TEST.NMS, thresh,
         max_per_class=max_per_image)
     mark('postprocess')
     return res
 
 
-def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor,
-                 geom: torch.Tensor, infos: torch.Tensor, noise_fn,
-                 bucket: tuple, thresh: float = 0.0,
+def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor, levels,
+                 noise_fn, hw=None, thresh: float = 0.0,
                  max_per_image: int = 100, on_stage=None):
     """One eval chunk, all on the images' device: `noise_chunk`, then
     `detect_noisy`.
 
     key: (2,) uint32 PRNG key; idx: image indices (one per raw image);
-    raw_u8: (B, H, W, 3) uint8 (or u8-domain f32) BGR frames; geom (B, 5)
-    f32 rows (h0, w0, oh, ow, scale); infos (B, 3) = (oh, ow, scale);
-    noise_fn from `make_pipeline`; bucket the padded (H, W).
-    on_stage(name), when given, is called after each of the stages
-    'noise', 'prep', 'forward' and 'postprocess' has been enqueued.
-    Returns per-class boxes, scores and mask, (B, C-1, max_per_image, ...).
+    raw_u8: (B, H, W, 3) uint8 (or u8-domain f32) BGR frames; levels:
+    per test scale (geom, bucket), geom (B, 5) f32 rows (h0, w0, oh, ow,
+    scale) and bucket the padded (H, W) (`chunk_levels`); noise_fn from
+    `make_pipeline`; hw as `noise_chunk` (the frames edge-padded
+    canvases).  on_stage(name), when given, is called after each of the
+    stages 'noise', 'prep', 'forward' and 'postprocess' has been
+    enqueued.  Returns per-class boxes, scores and mask, (B, C-1,
+    max_per_image, ...).
     """
-    noisy = noise_chunk(key, idx, raw_u8, noise_fn)
+    noisy = noise_chunk(key, idx, raw_u8, noise_fn, hw)
     if on_stage:
         on_stage('noise')
-    return detect_noisy(model, params, noisy, geom, infos, bucket, thresh,
+    return detect_noisy(model, params, noisy, levels, thresh,
                         max_per_image, on_stage)
 
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f'{what} is not ported yet (ROADMAP {item})')
+
+
+def _collect(all_boxes, i, bx, sc, mk, max_per_image: int):
+    """Image i's detections (one image's per-class numpy boxes, scores
+    and mask) into all_boxes after the global cap; the score summaries
+    take the detections before the cap, as the reference writes them
+    before its max_per_image cap."""
+    mki = limit_per_image(bx, sc, mk, max_per_image)
+    log_scores = get_metrics_logger().active_sinks
+    for cls in range(1, len(all_boxes)):
+        sel = mki[cls - 1]
+        all_boxes[cls][i] = np.hstack(
+            [bx[cls - 1][sel], sc[cls - 1][sel][:, None]]).astype(np.float32)
+        if log_scores:
+            _log_det_scores(sc[cls - 1][mk[cls - 1]][:, None], i)
+
+
+def _refuse(compute_id: bool, fast_rng: bool, mesh=None,
+            device_prep: bool = True):
+    if compute_id:
+        _not_ported('compute_id (TwoNN probes)', 'Queue 1 item 14')
+    if mesh is not None:
+        _not_ported('the device mesh', 'Queue 1 item 16')
+    if not device_prep:
+        _not_ported('host prep (device_prep=False: a cv2 resize on the '
+                    'host)', 'Queue 1 item 6B')
+    if fast_rng:
+        _not_ported('fast_rng', 'Queue 1 item 8')
+
+
+def _raw_shapes(imdb_obj):
+    return [image_hw(imdb_obj.image_path_at(i))
+            for i in range(imdb_obj.num_images)]
 
 
 def test_net_batched(model, params, imdb_obj, weights_filename: str,
@@ -150,22 +273,23 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
                      device_prep: bool = True, fast_rng: bool = False):
     """Batched evaluation over an imdb-protocol object (`num_images`,
     `num_classes`, `image_path_at`, `name`, `evaluate_detections`) on the
-    device of the model's parameters.  All images must share one raw
-    shape (as rrData's do); they run in chunks of `eval_batch` through
-    `detect_chunk`.  Images are read through `utils.image_io`: `.npy`
-    pixels (rrData's pixel_dir) need neither cv2 nor PIL.  Writes
-    detections.pkl and returns imdb_obj.evaluate_detections(...)."""
-    if compute_id:
-        _not_ported('compute_id (TwoNN probes)', 'Queue 1 item 14')
-    if mesh is not None:
-        _not_ported('the device mesh', 'Queue 1 item 16')
-    if not device_prep:
-        _not_ported('host prep (device_prep=False)', 'Queue 1 item 6')
-    if fast_rng:
-        _not_ported('fast_rng', 'Queue 1 item 8')
+    device of the model's parameters, with device prep.
+
+    Images are grouped by raw shape when the dataset has one, else by
+    per-orientation noise bucket (`derive_noise_buckets`): each image is
+    edge-padded to its bucket and the noise runs in its bucketed form
+    with the valid extents, so at most two noise shapes run.  Each group
+    runs in chunks of `eval_batch`, a partial chunk padded with its last
+    index (those results are dropped).  Per chunk: the noise once, then
+    per scale of TEST.SCALES device prep and the forward, and the
+    per-class NMS (over the union of the scales' candidates for a
+    pyramid): `detect_chunk`.  A worker thread reads chunk k + 1 while
+    chunk k runs.
+    Images are read through `utils.image_io`: `.npy` pixels need neither
+    cv2 nor PIL.  Writes detections.pkl and returns
+    imdb_obj.evaluate_detections(...)."""
+    _refuse(compute_id, fast_rng, mesh, device_prep)
     C = config or model.cfg
-    if len(C.TEST.SCALES) > 1:
-        _not_ported('the multi-scale test pyramid', 'Queue 1 item 6')
     set_matmul_precision()
     device = next(model.parameters()).device
     num_images, num_classes = imdb_obj.num_images, imdb_obj.num_classes
@@ -175,55 +299,135 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref)
     print(f'noise pipeline backend: {noise_fn.backend}')
     key = prng.PRNGKey(C.RNG_SEED)
-    t_size, m_size = C.TEST.SCALES[0], C.TEST.MAX_SIZE
+    t_sizes, m_size = tuple(C.TEST.SCALES), C.TEST.MAX_SIZE
+    if len(t_sizes) > 1:
+        print(f'multi-scale test pyramid: SCALES={t_sizes}')
 
-    shapes = {image_hw(imdb_obj.image_path_at(i))
-              for i in range(num_images)}
-    if len(shapes) > 1:
-        _not_ported('noise buckets for datasets of several image shapes',
-                    'Queue 1 item 6')
-    (h0, w0), = shapes
-    img_bucket = bucket or derive_bucket(t_size, m_size, portrait=h0 > w0)
-    s, oh, ow = rescale_geometry(h0, w0, t_size, m_size)
-    assert oh <= img_bucket[0] and ow <= img_bucket[1], \
-        f'image {oh}x{ow} exceeds bucket {img_bucket}'
-    geom = torch.tensor([(h0, w0, oh, ow, s)] * eval_batch,
-                        dtype=torch.float32, device=device)
+    raw_shapes = _raw_shapes(imdb_obj)
+    noise_buckets = derive_noise_buckets(raw_shapes)
+    if noise_buckets:
+        print(f'noise buckets: {noise_buckets} '
+              f'({len(set(raw_shapes))} distinct raw shapes)')
+    groups = defaultdict(list)
+    for i, (h, w) in enumerate(raw_shapes):
+        groups[noise_buckets['p' if h > w else 'l'] if noise_buckets
+               else (h, w)].append(i)
+    chunks = []
+    for nhw, idxs in groups.items():
+        for c0 in range(0, len(idxs), eval_batch):
+            chunk = idxs[c0:c0 + eval_batch]
+            chunks.append((nhw, chunk + [chunk[-1]] * (eval_batch
+                                                       - len(chunk)),
+                           len(chunk)))
+
+    def load(nhw, chunk):
+        ims = [read_bgr(imdb_obj.image_path_at(i)) for i in chunk]
+        if noise_buckets:
+            ims = [_pad_raw_to_bucket(im, nhw) for im in ims]
+        return np.stack(ims)
 
     timers = {'im_detect': Timer(), 'misc': Timer()}
-    for c0 in range(0, num_images, eval_batch):
-        chunk = list(range(c0, min(c0 + eval_batch, num_images)))
-        n_real = len(chunk)
-        # pad a partial chunk with its last index; those results are dropped
-        chunk = chunk + [chunk[-1]] * (eval_batch - n_real)
+    # the levels of each distinct chunk of shapes, built once
+    levels = {}
+    done = 0
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        nxt = ex.submit(load, *chunks[0][:2]) if chunks else None
+        for ci, (nhw, chunk, n_real) in enumerate(chunks):
+            timers['im_detect'].tic()
+            raw = torch.from_numpy(nxt.result()).to(device)
+            if ci + 1 < len(chunks):
+                nxt = ex.submit(load, *chunks[ci + 1][:2])
+            shapes = tuple(raw_shapes[i] for i in chunk)
+            if shapes not in levels:
+                levels[shapes] = chunk_levels(shapes, t_sizes, m_size,
+                                              bucket, device)
+            res = detect_chunk(model, params, key, chunk, raw,
+                               levels[shapes], noise_fn,
+                               shapes if noise_buckets else None, thresh,
+                               max_per_image)
+            bx, sc, mk = (t.cpu().numpy() for t in res)
+            timers['im_detect'].toc()
+            timers['misc'].tic()
+            for j, i in enumerate(chunk[:n_real]):
+                _collect(all_boxes, i, bx[j], sc[j], mk[j], max_per_image)
+            timers['misc'].toc()
+            done += n_real
+            print(f'im_detect: {done:d}/{num_images:d} '
+                  f'{timers["im_detect"].average_time:.3f}s/chunk '
+                  f'{timers["misc"].average_time:.3f}s')
+
+    with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
+        pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+    _finish_eval(output_dir)
+    return imdb_obj.evaluate_detections(all_boxes, output_dir)
+
+
+def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
+             max_per_image: int = 100, thresh: float = 0.0, config=None,
+             bucket=None, strict_ref: bool = False,
+             compute_id: bool = False, fast_rng: bool = False):
+    """The reference's one-image evaluation loop (`harness.py:159-310`)
+    on the device of the model's parameters.  Per image: the noise at the
+    raw resolution with the key fold_in(key, i) (as `noise_fn(fold_in(key,
+    i), im[None])`), or on a dataset of several shapes (and not
+    strict_ref) the bucketed form on the image's orientation bucket,
+    cropped back to (h0, w0); then `detect_noisy`: per scale of
+    TEST.SCALES device prep and one forward, and the per-class NMS (over
+    the union of the scales' candidates for a pyramid).
+
+    The JAX package preps each image on the host with cv2; no machine
+    this port runs on is sure to have cv2, so the prep runs on the device
+    (`ops/resize.prep_on_device`), as in `test_net_batched`.  That is
+    exact at scale 1 and within the resize's float tail elsewhere (f32
+    coordinates: at most ~0.05 u8 levels, `tpudenoise/eval/harness.py:
+    386-398`).  Writes detections.pkl and returns
+    imdb_obj.evaluate_detections(...)."""
+    _refuse(compute_id, fast_rng)
+    C = config or model.cfg
+    set_matmul_precision()
+    device = next(model.parameters()).device
+    num_images, num_classes = imdb_obj.num_images, imdb_obj.num_classes
+    all_boxes = [[[] for _ in range(num_images)]
+                 for _ in range(num_classes)]
+    output_dir = get_output_dir(imdb_obj.name, weights_filename, C)
+    noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref)
+    print(f'noise pipeline backend: {noise_fn.backend}')
+    key = prng.PRNGKey(C.RNG_SEED)
+    t_sizes, m_size = tuple(C.TEST.SCALES), C.TEST.MAX_SIZE
+    if len(t_sizes) > 1:
+        print(f'multi-scale test pyramid: SCALES={t_sizes}')
+    raw_shapes = _raw_shapes(imdb_obj)
+    # strict_ref keeps the exact-size noise (one shape per distinct raw
+    # shape): bucketing changes the draws' layout
+    noise_buckets = None if strict_ref else derive_noise_buckets(raw_shapes)
+    if noise_buckets:
+        print(f'noise buckets: {noise_buckets} '
+              f'({len(set(raw_shapes))} distinct raw shapes)')
+
+    timers = {'im_detect': Timer(), 'misc': Timer()}
+    for i in range(num_images):
+        im = read_bgr(imdb_obj.image_path_at(i))
         timers['im_detect'].tic()
-        raw = torch.from_numpy(np.stack(
-            [read_bgr(imdb_obj.image_path_at(i)) for i in chunk])
-        ).to(device)
-        boxes_c, scores_c, mask_c = detect_chunk(
-            model, params, key, chunk, raw, geom, geom[:, 2:],
-            noise_fn, img_bucket, thresh, max_per_image)
-        bx, sc, mk = (boxes_c.cpu().numpy(), scores_c.cpu().numpy(),
-                      mask_c.cpu().numpy())
+        h0, w0 = im.shape[:2]
+        hw = None
+        if noise_buckets is not None:
+            im = _pad_raw_to_bucket(im, noise_buckets['p' if h0 > w0
+                                                      else 'l'])
+            hw = [(h0, w0)]
+        noisy = noise_chunk(key, [i], torch.from_numpy(im[None]).to(device),
+                            noise_fn, hw)[:, :h0, :w0]
+        res = detect_noisy(model, params, noisy, chunk_levels(
+            [(h0, w0)], t_sizes, m_size, bucket, device), thresh,
+            max_per_image)
+        bx, sc, mk = (t.cpu().numpy()[0] for t in res)
         timers['im_detect'].toc()
         timers['misc'].tic()
-        log_scores = get_metrics_logger().active_sinks
-        for j, i in enumerate(chunk[:n_real]):
-            mkj = limit_per_image(bx[j], sc[j], mk[j], max_per_image)
-            for cls in range(1, num_classes):
-                sel = mkj[cls - 1]
-                all_boxes[cls][i] = np.hstack(
-                    [bx[j][cls - 1][sel],
-                     sc[j][cls - 1][sel][:, None]]).astype(np.float32)
-                # the summaries take the detections before the cap, as the
-                # reference writes them before its max_per_image cap
-                if log_scores:
-                    _log_det_scores(sc[j][cls - 1][mk[j][cls - 1]][:, None],
-                                    i)
+        _collect(all_boxes, i, bx, sc, mk, max_per_image)
         timers['misc'].toc()
-        print(f'im_detect: {c0 + n_real:d}/{num_images:d} '
-              f'{timers["im_detect"].average_time:.3f}s/chunk '
-              f'{timers["misc"].average_time:.3f}s')
+        if (i + 1) % 20 == 0 or i == num_images - 1:
+            print(f'im_detect: {i + 1:d}/{num_images:d} '
+                  f'{timers["im_detect"].average_time:.3f}s '
+                  f'{timers["misc"].average_time:.3f}s')
 
     with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
@@ -234,5 +438,5 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
 def _finish_eval(output_dir):
     """After the loop: the evaluation's banner.  The JAX package prints
     the TwoNN report of the compute_id features first; that arrives with
-    compute_id (Queue 1 item 14), which test_net_batched refuses."""
+    compute_id (Queue 1 item 14), which both loops refuse."""
     print(f'Evaluating detections (artifacts in {output_dir})')

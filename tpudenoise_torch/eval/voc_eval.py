@@ -5,8 +5,9 @@ Reimplements the reference's evaluator (ref lib/datasets/voc_eval.py:15-216)
 with the same matching rules: greedy per-detection matching in confidence
 order, per-gt dedup, IoU with the +1 convention, 11-point (VOC07) or
 continuous AP, and the same annotation cache file.  Vectorized where the
-reference loops; the per-detection greedy match stays a host loop (it is
-inherently sequential and tiny).
+reference loops: each image's detections meet its ground truth in one
+array expression, elementwise the reference's arithmetic; the greedy
+match (inherently sequential) stays a host loop, over Python scalars.
 """
 
 from __future__ import annotations
@@ -98,30 +99,42 @@ def voc_eval(detpath: str, annopath: str, imagesetfile: str,
         order = np.argsort(-confidence)
         bb_all = bb_all[order]
         image_ids = [image_ids[i] for i in order]
-        for d in range(nd):
-            R = class_recs[image_ids[d]]
-            bb = bb_all[d]
-            ovmax, jmax = -np.inf, -1
-            gts = R['bbox'].astype(float)
-            if gts.size > 0:
-                ixmin = np.maximum(gts[:, 0], bb[0])
-                iymin = np.maximum(gts[:, 1], bb[1])
-                ixmax = np.minimum(gts[:, 2], bb[2])
-                iymax = np.minimum(gts[:, 3], bb[3])
-                iw = np.maximum(ixmax - ixmin + 1.0, 0.0)
-                ih = np.maximum(iymax - iymin + 1.0, 0.0)
-                inters = iw * ih
-                uni = ((bb[2] - bb[0] + 1.0) * (bb[3] - bb[1] + 1.0)
-                       + (gts[:, 2] - gts[:, 0] + 1.0)
-                       * (gts[:, 3] - gts[:, 1] + 1.0) - inters)
-                overlaps = inters / uni
-                ovmax = overlaps.max()
-                jmax = int(overlaps.argmax())
-            if ovmax > ovthresh:
-                if not R['difficult'][jmax]:
-                    if not R['det'][jmax]:
+        # each detection's best overlap and its gt: one image's detections
+        # against its gts at once, elementwise as the reference's per
+        # detection arithmetic (so the same floats)
+        ovmax = np.full(nd, -np.inf)
+        jmax = np.full(nd, -1)
+        of_image = {}
+        for d, name in enumerate(image_ids):
+            of_image.setdefault(name, []).append(d)
+        for name, ds in of_image.items():
+            gts = class_recs[name]['bbox'].astype(float)
+            if gts.size == 0:
+                continue
+            bb = bb_all[ds][:, None, :]                         # (n, 1, 4)
+            ixmin = np.maximum(gts[:, 0], bb[..., 0])
+            iymin = np.maximum(gts[:, 1], bb[..., 1])
+            ixmax = np.minimum(gts[:, 2], bb[..., 2])
+            iymax = np.minimum(gts[:, 3], bb[..., 3])
+            iw = np.maximum(ixmax - ixmin + 1.0, 0.0)
+            ih = np.maximum(iymax - iymin + 1.0, 0.0)
+            inters = iw * ih
+            uni = ((bb[..., 2] - bb[..., 0] + 1.0)
+                   * (bb[..., 3] - bb[..., 1] + 1.0)
+                   + (gts[:, 2] - gts[:, 0] + 1.0)
+                   * (gts[:, 3] - gts[:, 1] + 1.0) - inters)
+            overlaps = inters / uni                             # (n, G)
+            ovmax[ds] = overlaps.max(axis=1)
+            jmax[ds] = overlaps.argmax(axis=1)
+        # the greedy match in confidence order: sequential, on scalars
+        for d, (ov, j, name) in enumerate(zip(ovmax.tolist(), jmax.tolist(),
+                                              image_ids)):
+            R = class_recs[name]
+            if ov > ovthresh:
+                if not R['difficult'][j]:
+                    if not R['det'][j]:
                         tp[d] = 1.0
-                        R['det'][jmax] = True
+                        R['det'][j] = True
                     else:
                         fp[d] = 1.0
             else:

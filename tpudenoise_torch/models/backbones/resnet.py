@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudenoise_torch.models.backbones.vgg import lecun_normal_
-from tpudenoise_torch.models.rpn import conv
+from tpudenoise_torch.models.rpn import conv, no_default_init
 
 BLOCK_UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -59,7 +59,7 @@ class FrozenBatchNorm(nn.Module):
 
 
 def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, bias=False)
+    return no_default_init(nn.Conv2d, cin, cout, k, bias=False)
 
 
 class Bottleneck(nn.Module):

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudenoise_torch.core import prng
-from tpudenoise_torch.models.rpn import conv, dense
+from tpudenoise_torch.models.rpn import conv, dense, no_default_init
 
 STAGES = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
 
@@ -36,7 +36,7 @@ class VGG16Head(nn.Module):
         for si, (reps, width) in enumerate(STAGES):
             for ri in range(reps):
                 self.add_module(f'conv{si + 1}_{ri + 1}',
-                                nn.Conv2d(cin, width, 3))
+                                no_default_init(nn.Conv2d, cin, width, 3))
                 cin = width
 
     def reset_parameters(self, generator: torch.Generator):
@@ -63,8 +63,8 @@ class VGG16Tail(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.fc6 = nn.Linear(pool * pool * channels, 4096)
-        self.fc7 = nn.Linear(4096, 4096)
+        self.fc6 = no_default_init(nn.Linear, pool * pool * channels, 4096)
+        self.fc7 = no_default_init(nn.Linear, 4096, 4096)
 
     def reset_parameters(self, generator: torch.Generator):
         for layer in (self.fc6, self.fc7):

@@ -9,6 +9,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def no_default_init(cls, *args, **kw) -> nn.Module:
+    """cls(*args, **kw), an nn.Conv2d or nn.Linear, with zero parameters
+    in place of PyTorch's default init: `FasterRCNN.init` or a checkpoint
+    sets every parameter of the detector, so the default's uniform draws
+    would be host time that nothing uses."""
+    m = nn.utils.skip_init(cls, *args, **kw)
+    for p in m.parameters():
+        nn.init.zeros_(p)
+    return m
+
+
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype, stride: int = 1
          ) -> torch.Tensor:
     """SAME conv of an NCHW tensor in the compute dtype, with the layer's
@@ -36,9 +47,11 @@ class RPNHead(nn.Module):
                  in_channels: int = 512, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.rpn_conv = nn.Conv2d(in_channels, channels, 3)
-        self.rpn_cls_score = nn.Conv2d(channels, num_anchors * 2, 1)
-        self.rpn_bbox_pred = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.rpn_conv = no_default_init(nn.Conv2d, in_channels, channels, 3)
+        self.rpn_cls_score = no_default_init(nn.Conv2d, channels,
+                                             num_anchors * 2, 1)
+        self.rpn_bbox_pred = no_default_init(nn.Conv2d, channels,
+                                             num_anchors * 4, 1)
 
     def reset_parameters(self, generator: torch.Generator):
         for layer in (self.rpn_conv, self.rpn_cls_score, self.rpn_bbox_pred):
@@ -70,8 +83,10 @@ class RCNNHead(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.cls_score = nn.Linear(in_features, num_classes)
-        self.bbox_pred = nn.Linear(in_features, num_classes * 4)
+        self.cls_score = no_default_init(nn.Linear, in_features,
+                                         num_classes)
+        self.bbox_pred = no_default_init(nn.Linear, in_features,
+                                         num_classes * 4)
 
     def reset_parameters(self, generator: torch.Generator):
         nn.init.normal_(self.cls_score.weight, 0.0, 0.01, generator=generator)

@@ -20,10 +20,13 @@ of `_WAVELET_ON_FLOAT` and on the u8 image scaled to [0, 1] for the
 rest, then `wrap_cast_u8(255 * w)` (`pipeline.py:53-58, 126-157`).
 Seeds and key algebra come from the numpy threefry port (`core.prng`),
 and the generators' fields from its device draws, so the draws equal the
-reference's.  Curvelet denoising (ROADMAP Queue 1 item 13), `fast_rng`
-(item 8) and the XLA mix scan with the mixes' `masked` (item 9) raise
-NotImplementedError naming their items; nothing falls back to another
-route.
+reference's.  A mix table outside the fused kernels goes through the mix
+scan (`_apply_specs_batched`, `pipeline.py:182-283`): per image, the
+entry draw of `mix_prologue.entry_draws` (the fused routes' own draw, so
+both pick the same kind for a key), then the drawn entry's template with
+its level as float32 (`_group_specs`).  Curvelet denoising (ROADMAP Queue
+1 item 13) and `fast_rng` (item 8) raise NotImplementedError naming their
+items; nothing falls back to another route.
 
 The returned callable `fn(key, images)` takes a (2,) uint32 key and
 (B, H, W, 3) uint8 or float32 u8-domain images on any device and returns
@@ -37,9 +40,10 @@ pass hw to the generators whose raster depends on it (brownian,
 periodic, quant, bloom; `pipeline.py:570-629, 423-430`) and to the
 wavelet, whose statistics then count each image's valid region only;
 their 3x3 stencils, bilateral passes and wavelet reconstruction run over
-the whole canvas.  The mix
-routes' masked (the XLA mix scan) raises NotImplementedError naming
-ROADMAP Queue 1 item 9.
+the whole canvas.  The fused mix routes' masked is the reference's
+`run_masked` (`pipeline.py:376-384`): the mix scan with hw, then the
+plan's post-pass over the canvas, a bilateral one through the bilateral
+kernel (`bilateral_batched`), the wavelet with hw for its statistics.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ from tpudenoise_torch.noise.generators import bloom_params
 from tpudenoise_torch.noise.kmeans import quantize_colors
 from tpudenoise_torch.noise.mix_kernels import (fused_mix_bilateral,
                                                 fused_mix_noise)
-from tpudenoise_torch.noise.mix_prologue import mix_prologue, plan_tables
+from tpudenoise_torch.noise.mix_prologue import (entry_draws, mix_prologue,
+                                                 plan_tables)
 from tpudenoise_torch.noise.spec import (GAUSSIAN_RANDOM_LEVELS, Denoise,
                                          Kind, NoisePlan, NoiseSpec, parse)
 from tpudenoise_torch.utils.transfer import to_device
@@ -140,10 +145,12 @@ class _PerImagePipeline:
     key over the batch, `keyed` takes split(k, 1)[0] of each image's key
     (as a B=1 call would)."""
 
-    def __init__(self, backend: str, apply):
+    def __init__(self, backend: str, apply, apply_masked=None):
         self.backend = backend
         # ((B, 2) uint32 keys, images, hw=None) -> images
         self._apply = apply
+        # the bucketed form, where it is not apply with hw
+        self._apply_masked = apply_masked or apply
 
     def __call__(self, key, images: torch.Tensor) -> torch.Tensor:
         return self._apply(prng.split(key, images.shape[0]), images)
@@ -159,18 +166,8 @@ class _PerImagePipeline:
         keys = np.asarray(keys, np.uint32).reshape(-1, 2)
         if keys.shape[0] != images.shape[0]:
             raise ValueError('one key per image')
-        return self._apply(prng.split(keys, 1)[:, 0], images,
-                           G._hw_rows(hw, images.shape[0]))
-
-
-class _MixPipeline(_PerImagePipeline):
-    """The fused mix routes, whose bucketed form is the XLA mix scan."""
-
-    def masked(self, keys, images: torch.Tensor, hw) -> torch.Tensor:
-        raise NotImplementedError(
-            f'{self.backend}: the bucketed (masked) form of a mixed plan '
-            f'goes through the XLA mix scan, which is not ported (ROADMAP '
-            f'Queue 1 item 9)')
+        return self._apply_masked(prng.split(keys, 1)[:, 0], images,
+                                  G._hw_rows(hw, images.shape[0]))
 
 
 _POST_ITEM = {Denoise.CURVELET: 'Queue 1 item 13'}
@@ -179,11 +176,6 @@ _POST_ITEM = {Denoise.CURVELET: 'Queue 1 item 13'}
 # cast to u8 first (`pipeline.py:126-127`)
 _WAVELET_ON_FLOAT = {Kind.GAUSSIAN, Kind.SAP, Kind.SPECKLE, Kind.UNIFORM,
                      Kind.GAMMA, Kind.RAYLEIGH}
-
-
-_MIX_SCAN = ('the XLA mix scan (a per-image switch over a mix table) is not '
-             'ported: mixes take the fused mix kernels (ROADMAP Queue 1 '
-             'item 9)')
 
 
 def _refuse(denoise: Denoise):
@@ -201,12 +193,16 @@ _FILTERS = {
 }
 
 
-def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None):
+def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None, level=None):
     """The generator of one spec over (B, H, W, 3) float32 u8-domain
     images, one key each: (noisy images, 'unit' or 'u8' domain).  hw:
     per image valid (h, w) host ints, for the generators whose raster
-    depends on it (the elementwise ones need none)."""
-    kind, lvl = spec.kind, spec.level
+    depends on it (the elementwise ones need none).  level: a float32
+    level in place of spec.level (a mix entry's, `_group_specs`); each
+    generator computes with its level in float32, so a traced level and
+    a constant one give the same bits, as in the reference."""
+    kind = spec.kind
+    lvl = spec.level if level is None else float(np.float32(level))
     if kind == Kind.GAUSSIAN:
         if spec.is_random_level:
             kl, kn = np.moveaxis(prng.split(keys), -2, 0)
@@ -251,12 +247,12 @@ def _wavelet_u8(images01: torch.Tensor, hw=None) -> torch.Tensor:
 
 
 def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
-               hw=None) -> torch.Tensor:
+               hw=None, level=None) -> torch.Tensor:
     """One (kind, level, denoise) combination over (B, H, W, 3) float32
-    u8-domain images with one key each ((B, 2) uint32), hw as `_noisy`.
-    Returns u8-domain float32, or the [0, 1] floats of plain gaussian (a
-    reference quirk)."""
-    noisy, dom = _noisy(spec, keys, images, hw)
+    u8-domain images with one key each ((B, 2) uint32), hw and level as
+    `_noisy`.  Returns u8-domain float32, or the [0, 1] floats of plain
+    gaussian (a reference quirk)."""
+    noisy, dom = _noisy(spec, keys, images, hw, level)
     u8 = G.wrap_cast_u8(255.0 * noisy) if dom == 'unit' else noisy
     d = spec.denoise
     if d == Denoise.NONE:
@@ -285,13 +281,63 @@ def apply_post(denoise: Denoise, images: torch.Tensor,
     return _FILTERS[denoise](images, not unit_float)
 
 
+# kinds whose generator takes its level as data: a mix table's entries of
+# one such kind share one template, the level riding a per-entry table
+_TRACED_LEVEL_KINDS = {Kind.GAUSSIAN, Kind.SAP, Kind.SPECKLE, Kind.UNIFORM,
+                       Kind.GAMMA, Kind.RAYLEIGH, Kind.PERIODIC,
+                       Kind.BROWNIAN}
+
+
+def _group_specs(specs):
+    """Collapse a mix table to its templates (`pipeline.py:187-220`):
+    (templates, traced flags, entry -> template (E,) int32, entry level
+    (E,) float32, 0 for the entries whose level is part of the template:
+    quant's cluster count, gaussian's random level)."""
+    templates, traced_flags, keys = [], [], {}
+    eb, el = [], []
+    for s in specs:
+        traced = s.kind in _TRACED_LEVEL_KINDS and not s.is_random_level
+        if traced:
+            k = (s.kind, s.denoise, s.unit_float_output, None)
+            lvl = float(s.level)
+        else:
+            k = (s.kind, s.denoise, s.unit_float_output, s.level)
+            lvl = 0.0
+        if k not in keys:
+            keys[k] = len(templates)
+            templates.append(s)
+            traced_flags.append(traced)
+        eb.append(keys[k])
+        el.append(lvl)
+    return (templates, traced_flags, np.asarray(eb, np.int32),
+            np.asarray(el, np.float32))
+
+
 def _apply_specs_batched(specs, keys, images: torch.Tensor,
                          hw=None) -> torch.Tensor:
-    """Per-image spec application over a batch: one spec for every image.
-    A mix table runs on the fused kernels instead."""
-    if len(specs) != 1:
-        raise NotImplementedError(_MIX_SCAN)
-    return apply_spec(specs[0], keys, images, hw)
+    """Per-image spec application over a batch of (B, H, W, 3) float32
+    images with one key each; hw as `_noisy`.  One spec: every image.  A
+    mix table: the mix scan, per image `kc, ka = split(k)`, the entry
+    `randint(kc, (), 0, E)`, then that entry's template with key ka and,
+    for the traced kinds, its level as float32.  The images that drew the
+    same template and level run as one batch; each image's output is the
+    one it gets alone."""
+    if len(specs) == 1:
+        return apply_spec(specs[0], keys, images, hw)
+    templates, traced, eb, el = _group_specs(specs)
+    branch, level, _, ka = entry_draws(keys, eb, el)
+    rows = G._hw_rows(hw, images.shape[0])
+    out = torch.empty_like(images)
+    groups = {}
+    for i, (t, lv) in enumerate(zip(branch.tolist(), level.tolist())):
+        groups.setdefault((t, lv if traced[t] else None), []).append(i)
+    for (t, lv), ids in groups.items():
+        sel = torch.tensor(ids, device=images.device)
+        out[sel] = apply_spec(
+            templates[t], ka[ids], images[sel],
+            None if rows is None else [rows[i] for i in ids],
+            None if lv is None else np.float32(lv))
+    return out
 
 
 def _post_batched_for(plan: NoisePlan, unit_float: bool):
@@ -303,21 +349,28 @@ def _post_batched_for(plan: NoisePlan, unit_float: bool):
 
 
 def _mix_pipeline(plan: NoisePlan) -> _PerImagePipeline:
+    """The fused mix kernels; the bucketed form is the mix scan, then the
+    post-pass over the canvas (a bilateral one through the bilateral
+    kernel, as the fused route's)."""
     kinds, eb, el = plan_tables(plan.specs)
     bilateral = plan.post_denoise == Denoise.BILATERAL
-    post = None
-    if plan.post_denoise not in (Denoise.NONE, Denoise.BILATERAL):
-        post = _post_batched_for(
-            plan, all(s.unit_float_output for s in plan.specs))
+    post = _post_batched_for(plan,
+                             all(s.unit_float_output for s in plan.specs))
 
     def apply(keys, images):
         args = mix_prologue(keys, images, kinds, eb, el)
-        run = fused_mix_bilateral if bilateral else fused_mix_noise
-        out = run(_to_u8(images), *args, kinds)
-        return out if post is None else post(out)
+        if bilateral:
+            return fused_mix_bilateral(_to_u8(images), *args, kinds)
+        return post(fused_mix_noise(_to_u8(images), *args, kinds))
 
-    return _MixPipeline(
-        'cuda:fused_mix' + ('+bilateral' if bilateral else ''), apply)
+    def apply_masked(keys, images, hw):
+        out = _apply_specs_batched(plan.specs, keys,
+                                   images.to(torch.float32), hw)
+        return bilateral_batched(out) if bilateral else post(out, hw)
+
+    return _PerImagePipeline(
+        'cuda:fused_mix' + ('+bilateral' if bilateral else ''), apply,
+        apply_masked)
 
 
 def _bilateral_pipeline(spec: NoiseSpec, n_stages: int) -> _PerImagePipeline:
@@ -338,9 +391,10 @@ def _bilateral_pipeline(spec: NoiseSpec, n_stages: int) -> _PerImagePipeline:
 
 
 def _generic_pipeline(plan: NoisePlan) -> _PerImagePipeline:
-    """The generator (threefry draws; bloom through the bloom kernel), its
-    denoise and the post-pass."""
-    post = _post_batched_for(plan, plan.specs[0].unit_float_output)
+    """The generator (threefry draws; bloom through the bloom kernel; a
+    mix table through the mix scan), its denoise and the post-pass."""
+    post = _post_batched_for(plan,
+                             all(s.unit_float_output for s in plan.specs))
 
     def apply(keys, images, hw=None):
         return post(_apply_specs_batched(plan.specs, keys,
@@ -366,7 +420,7 @@ def make_pipeline(plan: NoisePlan | str, mode: str = 'TEST',
         if all(s.denoise == Denoise.NONE and not s.is_random_level
                for s in specs):
             return _mix_pipeline(plan)
-        raise NotImplementedError(_MIX_SCAN)
+        return _generic_pipeline(plan)
     s = specs[0]
     post = plan.post_denoise
     if (s.kind == Kind.SAP and s.denoise == Denoise.MEDIAN
