@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing runs without a GPU):
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off;
-  2. build: nvcc builds the seven kernel sources of tpudenoise_torch/csrc
-     (fourteen kernels), one nvcc process each, all at once;
+  2. build: nvcc builds the eight kernel sources of tpudenoise_torch/csrc
+     (fourteen kernels and the hash stream), one nvcc process each, all at
+     once;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, each timed beside its plain version:
      sap+median (8, 600, 1000, 3) bit-exact on u8 and on f32 values that
@@ -35,6 +36,9 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      threefry fields for 8 keys x 1.8M elements: bits and uniforms
      bit-exact, normals within 2 ulp, and poisson's PTRS draw (64 keys x
      1.8M uniforms) bit-exact, each mode timed with its bound; the
+     hash-stream kernel (`--fast-rng`) for 8 seed pairs x 1.8M elements,
+     words and uniforms bit-exact, normals within 2 ulp, each mode timed
+     with its bound; the
      stage-cut sap + median kernels (the profiling forks) on the
      edge-padded raster of (8, 600, 1000, 3) f32 and u8 images, every
      stage, and the full stage on a random raster, bit-exact, and again
@@ -152,6 +156,27 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      session, the device's activity only, marker kernels between the
      runs); kernel 3
      and the walk timed at the pyramid's and COCO's postprocess shapes;
+  5e. the last single-card options (run last, after phase 6 and the
+     kernels' device-time reads: run before them, its curvelet chunks
+     left torch.profiler dropping kernel records in those reads), seeded
+     res101 bf16 at
+     full width and depth, batch 8, raw 600x1000, bucket 608x1024:
+     `--fast-rng` on poisson, gamma_var0.3, brownian_var0.09 and
+     speckle_bilateral_var1.0, 3 warm and 5 timed chunks each with and
+     without the flag (img/s and noise ms of both logged; with it the
+     hash kernel's launches as the salts imply a chunk and no threefry
+     draw), one more chunk of each with every hash launch held to its
+     plain version, and sap_median_var0.4 giving the same bytes with the
+     flag; one `cli.trainval --fast-rng` step (res101, poisson, the
+     training phase's images: finite losses, hash launches held to their
+     plain version); the `curvelet` string through detect_chunk (kernel
+     6, then the curvelet post-pass on torch.fft), 3 chunks, the
+     post-pass timed by CUDA events and each chunk's peak memory logged,
+     then two 160x200 images card against CPU; `cli.fdct` on a 600x1000
+     `.npy` image; `cli.test --compute-id` (res101 with a randomized
+     head: the seeded conv3 is zero) over the CLI phase's 16 images, its
+     loop timed against the same command without the probes, every
+     logged TwoNN ID finite and positive;
   6. where the time goes: one chunk of each string under torch.profiler,
      the device's activity only (device kernel time, idle share, the
      port's own kernels' share, split by kernel name with their launches:
@@ -201,7 +226,7 @@ from tpudenoise_torch.data import synthetic
 from tpudenoise_torch.data.voc_like import rrData
 from tpudenoise_torch.denoise import bilateral as bil
 from tpudenoise_torch.eval.harness import (detect_chunk, limit_per_image,
-                                           set_matmul_precision,
+                                           noise_chunk, set_matmul_precision,
                                            test_net_batched)
 from tpudenoise_torch.models.faster_rcnn import FasterRCNN
 from tpudenoise_torch.noise import bloom as bl
@@ -236,7 +261,7 @@ MASKS, WALK = 'build_suppression_masks_cuda', 'greedy_keep'
 # no Pallas counterpart: the reference's nms_packed sweeps to a fixpoint
 WALK_REPLACES = 'tpudenoise/ops/nms.py:365'
 SOURCES = ('fused_noise', 'nms_mask', 'mix_noise', 'bloom', 'bilateral',
-           'threefry', 'sap_stages')
+           'threefry', 'sap_stages', 'hash_stream')
 # the dataset-loop phase: images and noise string
 LOOP_IMAGES, LOOP_NOISE = 16, 'sap_median_var0.4'
 # the CLI phase: images of the eval CLI, the demo's image shapes and noise
@@ -259,10 +284,12 @@ OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 # version, a transcendental as one: hash 15, compare/select 4, a 3x3
 # median pass 16, a [1,2,1] blur pass 12, Box-Muller 12, the 49-tap
 # bilateral 312 (937 per pixel), a 48-step bloom composite 430, a
-# threefry word 78 (+4 for a uniform, +22 for erf_inv)
+# threefry word 78 (+4 for a uniform, +22 for erf_inv), a counter-hash
+# word 11 (+3 for a uniform; a normal two words, two uniforms, log, sqrt,
+# cos and 3 multiplies: 35)
 OPS = {'sap_median': 15 + 4 + 2 * 16, 'gauss_blur': 2 * 15 + 12 + 6 + 2 * 12,
        'bilateral': 312, 'bloom': 430, 'bits': 78, 'uniform': 82,
-       'normal': 104}
+       'normal': 104, 'hash_bits': 11, 'hash_u01': 14, 'hash_normal': 35}
 # the stage-cut sap + median kernel, per output element
 STAGE_OPS = {'copy': 0, 'noise': 15 + 4, 'med1': 15 + 4 + 16,
              'full': OPS['sap_median']}
@@ -679,6 +706,57 @@ def check_threefry(dev) -> list:
                                              'library_ms')})]
 
 
+def check_hash(dev) -> list:
+    """The hash-stream kernel (`--fast-rng`) against its plain version on
+    the card: 8 seed pairs x 1.8M elements (one (8, 600, 1000, 3) field)
+    in its three modes, words and uniforms bit-exact, Box-Muller normals
+    within 2 ulp (the threefry normals' bound); the words equal the CPU's.
+    Each mode timed with its bound; the row's own numbers are the normals
+    (gaussian, speckle and brownian draw them)."""
+    n = H * W * 3
+    seeds = torch.from_numpy(prng.split(prng.PRNGKey(15), B).astype(
+        np.int64)).to(dev)
+    worst = 0.0
+    modes = {}
+    for mode in ('bits', 'u01', 'normal'):
+        got = prng.hash_draw(seeds, n, 64, mode)
+        want = prng.hash_draw_plain(seeds, n, 64, mode)
+        torch.cuda.synchronize()
+        ulp = (got.view(torch.int32).long()
+               - want.view(torch.int32).long()).abs()
+        m = ulp.max().item()
+        log(f'kernel hash_draw {mode} {B} x {n}: max {m} ulp, '
+            f'{(ulp > 0).double().mean().item():.2e} differ (bound: 0 for '
+            f'words and uniforms, 2 ulp for normals)')
+        if m > (2 if mode == 'normal' else 0):
+            raise AssertionError(f'hash_draw {mode} outside its bound')
+        if mode == 'normal':
+            worst = (got - want).abs().max().item()
+        del got, want, ulp
+
+        def draw(mode=mode):
+            return prng.hash_draw(seeds, n, 64, mode)
+
+        modes[f'{mode} {B} x {n}'] = dict(
+            ms=time_ms(draw, 20),
+            device_ms=later(draw, 20, ('hash_kernel',)),
+            **bound(4 * B * n, OPS['hash_' + mode] * B * n))
+    if not torch.equal(prng.hash_draw(seeds[:2], 4099, 16, 'bits').cpu(),
+                       prng.hash_draw_plain(seeds[:2].cpu(), 4099, 16,
+                                            'bits')):
+        raise AssertionError('hash_draw words differ between card and CPU')
+    row = modes[f'normal {B} x {n}']
+    return [dict(
+        name='hash_draw', route='cuda',
+        source='tpudenoise_torch/csrc/hash_stream.cu',
+        replaces='tpudenoise/noise/fast_samplers.py:62',
+        max_abs_err=worst, ms=row['ms'], device_ms=row['device_ms'],
+        plain_ms=time_ms(lambda: prng.hash_draw_plain(seeds, n, 64,
+                                                      'normal'), 3, 1),
+        modes=modes, **{k: row[k] for k in ('bound_ms', 'bound_by',
+                                             'library_ms')})]
+
+
 def check_sap_stages(dev) -> list:
     """Kernels 9-11, the stage-cut forks of kernel 1, against their plain
     versions at (8, 600, 1000, 3), bit-exact: every stage on the
@@ -952,7 +1030,9 @@ PATH_KERNELS = {'sap_median_var0.4': ('fused_sap_median_batched',),
                                              'bilateral_batched'),
                 'poisson': ('threefry_draw',),
                 'gaussian_wavelet_var0.1': ('threefry_draw',),
-                'noise_mix_var_all_wavelet': ('fused_mix_noise',)}
+                'noise_mix_var_all_wavelet': ('fused_mix_noise',),
+                'gamma_var0.3': ('threefry_draw',),
+                'brownian_var0.09': ('threefry_draw',)}
 NMS_KERNELS = (MASKS, WALK)
 ENTRY_PATH = 'fused_sap_median entry'
 PROFILE_PATH = 'profiling entry points'
@@ -975,6 +1055,7 @@ def launch_counts() -> dict:
             'bloom_batched': bl.launches['bloom'],
             'bilateral_batched': bil.launches['bilateral'],
             'threefry_draw': prng.launches['threefry'],
+            'hash_draw': prng.launches['hash'],
             'sap_stages_f32': fk.launches['sap_stages_f32'],
             'sap_stages_u8': fk.launches['sap_stages_u8'],
             'sap_full_padded': fk.launches['sap_full_padded']}
@@ -1008,15 +1089,20 @@ def chunk_inputs(dev, backbone: str):
     return model, params, raw, [(geom, BUCKET)], prng.PRNGKey(cfg.RNG_SEED)
 
 
-def main_path(inputs, card: str, noises, tag: str = '') -> dict:
+def main_path(inputs, card: str, noises, tag: str = '',
+              fast: bool = False) -> dict:
     """detect_chunk for each noise string: 3 warm and 5 timed chunks, the
     launch counters zeroed before and read after; results keyed
-    `tag + noise`."""
+    `tag + noise` (+ ' --fast-rng' with fast: the pipeline's counter-hash
+    draws, each string's hash launches exactly FAST_KERNELS' a chunk and
+    no threefry draw)."""
     model, params, raw, levels, key = inputs
     stages = ('noise', 'prep', 'forward', 'postprocess')
     result = {}
     for noise in noises:
-        noise_fn = make_pipeline(noise)
+        noise_fn = make_pipeline(noise, fast_rng=fast)
+        kernels = (tuple(FAST_KERNELS[noise]) if fast
+                   else PATH_KERNELS[noise])
         walls, per_stage = [], {s: [] for s in stages}
         zero_counts()
         for it in range(8):
@@ -1042,10 +1128,15 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
                 for s, a, b in zip(stages, events, events[1:]):
                     per_stage[s].append(a.elapsed_time(b))
         counts = launch_counts()
-        missing = [k for k in PATH_KERNELS[noise] if not counts[k]]
+        missing = [k for k in kernels if not counts[k]]
         if missing:
             raise AssertionError(f'{noise}: the main path did not launch '
                                  f'{missing} ({counts})')
+        if fast and (counts['threefry_draw'] or any(
+                counts[k] != 8 * n for k, n in FAST_KERNELS[noise].items())):
+            raise AssertionError(f'{noise} --fast-rng: launches {counts}, '
+                                 f'expected {FAST_KERNELS[noise]} a chunk '
+                                 f'and no threefry draw')
         if any(counts[k] != 2 * 8 for k in NMS_KERNELS):
             raise AssertionError(f'{noise}: not 2 launches a chunk of each '
                                  f'NMS kernel ({counts})')
@@ -1064,7 +1155,7 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
                 raise AssertionError('limit_per_image did not cap at 100')
             final += len(lim)
         med = statistics.median(walls)
-        name = tag + noise
+        name = tag + noise + (' --fast-rng' if fast else '')
         result[name] = dict(
             img_per_s=B / med, img_per_s_mean=B * len(walls) / sum(walls),
             chunk_ms=med * 1e3,
@@ -1072,8 +1163,7 @@ def main_path(inputs, card: str, noises, tag: str = '') -> dict:
             kept_per_image=float(kept.sum() / B),
             # after the cap of 100 per image; above 100 only for ties
             final_per_image=final / B,
-            launches={k: counts[k] for k in PATH_KERNELS[noise]
-                      + NMS_KERNELS},
+            launches={k: counts[k] for k in kernels + NMS_KERNELS},
             kinds_timed=kinds_drawn(noise, key, range(3 * B, 8 * B)))
         r = result[name]
         log(f'main path {name}: {B / med:.1f} img/s (median of 5 chunks, '
@@ -1656,7 +1746,8 @@ TRAIN_TAPPED = {**TAPPED,
                 'bloom_batched': (pipeline, 'bloom_batched',
                                   bloom_apply_scan),
                 'bilateral_batched': (pipeline, 'bilateral_batched',
-                                      bil.bilateral_plain)}
+                                      bil.bilateral_plain),
+                'hash_draw': (prng, 'hash_draw', prng.hash_draw_plain)}
 # step 1's losses on the card (f32) against the CPU's plain versions: the
 # RPN terms do not depend on the sampled proposals; the RoI terms do, and
 # a proposal whose score ties another within rounding could swap places
@@ -1676,11 +1767,12 @@ def hold_train_to_plain(calls: dict, path: str, card: str) -> dict:
         err = 0.0
         for a, k, got in launches:
             want = plain(*a, **k)
-            if got.dtype.is_floating_point and name == 'threefry_draw':
+            if name in ('threefry_draw', 'hash_draw'):
                 e = (got.view(torch.int32).long()
                      - want.to(got.dtype).view(torch.int32).long()).abs()
                 e = e.max().item()
-                ok = e <= (2 if a[2] == 'normal' else 0)
+                mode = a[2] if name == 'threefry_draw' else a[3]
+                ok = e <= (2 if mode == 'normal' else 0)
             elif name == 'fused_gaussian_blur':
                 diff = (got.double() - want.double()).abs()
                 e = diff.max().item()
@@ -1698,7 +1790,8 @@ def hold_train_to_plain(calls: dict, path: str, card: str) -> dict:
                           max_abs_err=err)
         log(f'{path}: {name} held to its plain version on its {len(launches)}'
             f' launches at {shapes[:4]}: max error {err}'
-            + (' (ulps)' if name == 'threefry_draw' else '') + f'  [{card}]')
+            + (' (ulps)' if name in ('threefry_draw', 'hash_draw') else '')
+            + f'  [{card}]')
     return held
 
 
@@ -1765,12 +1858,16 @@ def recording():
 
 
 def check_train_launches(counts: dict, net: str, noise: str, iters: int,
-                         path: str) -> dict:
+                         path: str, fast: bool = False) -> dict:
     """The step's noise kernels, kernel 3 and the walk once a step (one
-    image a batch) and the threefry draws of the targets (and dropout)."""
+    image a batch) and the threefry draws of the targets (and dropout);
+    with fast, the noise's hash draws (FAST_KERNELS) in place of its
+    threefry draws."""
     want = {MASKS: iters, WALK: iters,
             'threefry_draw': TRAIN_DRAWS[net] * iters}
-    for k, n in TRAIN_NOISE_LAUNCHES[noise].items():
+    noise_launches = (FAST_KERNELS[noise] if fast
+                      else TRAIN_NOISE_LAUNCHES[noise])
+    for k, n in noise_launches.items():
         want[k] = want.get(k, 0) + n * iters
     got = {k: counts[k] for k in want}
     if got != want:
@@ -1779,16 +1876,20 @@ def check_train_launches(counts: dict, net: str, noise: str, iters: int,
 
 
 def train_cli(card: str, inp: dict, net: str, noise: str, iters: int,
-              tag: str) -> tuple:
-    """cli.trainval in process, every launch taped and held to its plain
-    version; returns (entry for e2e, the final state, the iterations seen,
-    the states restored, the config it ran with)."""
+              tag: str, fast: bool = False) -> tuple:
+    """cli.trainval in process (with --fast-rng when fast), every launch
+    taped and held to its plain version; returns (entry for e2e, the
+    final state, the iterations seen, the states restored, the config it
+    ran with)."""
     from tpudenoise_torch.cli import trainval
-    path = f'train {net} {noise} --iters {iters}'
+    path = f'train {net} {noise} --iters {iters}' + (' --fast-rng' if fast
+                                                     else '')
     with taped(TRAIN_TAPPED) as calls, recording() as (seen, restored):
         state, wall, counts, cfg = run_cli(
-            trainval.main, train_argv(inp, net, noise, iters, tag))
-    launches = check_train_launches(counts, net, noise, len(seen), path)
+            trainval.main, (['--fast-rng'] if fast else [])
+            + train_argv(inp, net, noise, iters, tag))
+    launches = check_train_launches(counts, net, noise, len(seen), path,
+                                    fast)
     held = hold_train_to_plain(calls, path, card)
     losses = [s['losses'] for s in seen]
     if not all(np.isfinite(v) for x in losses for v in x.values()):
@@ -2809,6 +2910,272 @@ def shape_phase(card: str, rows: list) -> dict:
                                        launches=totals)}
 
 
+# ------------------------------------------------ slice 15: phase 5e --
+
+# the --fast-rng strings of phase 5e and the kernels each chunk of 8
+# launches: the hash draws the salts imply (poisson: its inversion
+# uniform, fallback normal and 4 PTRS words; gamma: a normal and a
+# uniform a round, 4 rounds; brownian and speckle one normal field)
+FAST_KERNELS = {'poisson': {'hash_draw': 6},
+                'gamma_var0.3': {'hash_draw': 8},
+                'brownian_var0.09': {'hash_draw': 1},
+                'speckle_bilateral_var1.0': {'hash_draw': 1,
+                                             'bilateral_batched': 2}}
+FAST_TRAIN_NOISE = 'poisson'
+# the curvelet chunks (1 warm, 2 timed) and the card-vs-CPU case
+CURVELET_CHUNKS = 3
+CURVELET_SMALL = (2, 160, 200, 3)
+CURVELET_SHARE = 5e-3
+
+
+def hold_hash_to_plain(calls, path: str, card: str) -> dict:
+    """Each recorded hash_draw launch against its plain version on the
+    same seeds: words and uniforms bit-exact, normals within 2 ulp."""
+    worst = 0
+    for a, _, got in calls:
+        want = prng.hash_draw_plain(*a)
+        e = (got.view(torch.int32).long()
+             - want.view(torch.int32).long()).abs().max().item()
+        if e > (2 if a[3] == 'normal' else 0):
+            raise AssertionError(f'{path}: hash_draw {a[3]} salt {a[2]} '
+                                 f'{e} ulp from its plain version')
+        worst = max(worst, e)
+    modes = sorted({(a[2], a[3]) for a, _, _ in calls})
+    log(f'{path}: hash_draw held to its plain version on its {len(calls)} '
+        f'launches (salt, mode) {modes}: max {worst} ulp  [{card}]')
+    return dict(launches=len(calls), salts=modes, max_ulp=worst)
+
+
+def fast_rng_paths(res, card: str) -> dict:
+    """`--fast-rng` on the res101 main path: each FAST_KERNELS string's
+    chunks with and without the flag (the flag's hash launches and no
+    threefry draw), one more chunk of each with every hash launch held
+    to its plain version, and sap_median_var0.4 with the flag giving the
+    bytes it gives without."""
+    noises = tuple(FAST_KERNELS)
+    out = main_path(res, card, noises, 'res101 ')
+    out.update(main_path(res, card, noises, 'res101 ', fast=True))
+    for noise in noises:
+        a, b = out[f'res101 {noise}'], out[f'res101 {noise} --fast-rng']
+        log(f'--fast-rng {noise}: {b["img_per_s"]:.1f} img/s against '
+            f'{a["img_per_s"]:.1f} without; noise ms '
+            f'{b["stage_ms"]["noise"]:.2f} against '
+            f'{a["stage_ms"]["noise"]:.2f}  [{card}]')
+    model, params, raw, levels, key = res
+    tapped = {'hash_draw': (prng, 'hash_draw', prng.hash_draw_plain)}
+    for noise in noises:
+        with taped(tapped) as calls:
+            noise_chunk(key, list(range(B)), raw,
+                        make_pipeline(noise, fast_rng=True))
+        out[f'res101 {noise} --fast-rng']['held'] = hold_hash_to_plain(
+            calls['hash_draw'], f'{noise} --fast-rng chunk', card)
+        del calls
+    idx = list(range(B))
+    sap = [noise_chunk(key, idx, raw, make_pipeline('sap_median_var0.4',
+                                                    fast_rng=f))
+           for f in (False, True)]
+    if not torch.equal(*sap):
+        raise AssertionError('sap_median_var0.4 --fast-rng changed its bytes')
+    log('sap_median_var0.4: the same bytes with --fast-rng and without '
+        '(the fused route draws its own coordinate hash)')
+    return out
+
+
+def fast_rng_train(card: str) -> dict:
+    """One cli.trainval --fast-rng step on the training phase's images:
+    res101 on FAST_TRAIN_NOISE (the masked generic route's hash draws),
+    finite losses, its hash launches as the salts imply and held to
+    their plain version, the targets' threefry draws only."""
+    import os.path as osp
+    repo = default_config().ROOT_DIR
+    inp = dict(repo=repo, root=osp.join(repo, 'build', 'chip_smoke_train'))
+    e, *_ = train_cli(card, inp, 'res101', FAST_TRAIN_NOISE, 1, 'fast_rng',
+                      fast=True)
+    return {f'train res101 {FAST_TRAIN_NOISE} --fast-rng': e}
+
+
+def curvelet_path(res, card: str) -> dict:
+    """The curvelet string through detect_chunk on the res101 main path:
+    kernel 6 (its 12-entry pre-noise), then the curvelet post-pass
+    (`torch.fft`), 4 images a pass; CURVELET_CHUNKS chunks (the first
+    builds the windows), the post-pass timed by CUDA events, the
+    chunk's peak memory; the counters zeroed before and read after.
+    Then CURVELET_SMALL card against CPU."""
+    from tpudenoise_torch.denoise.curvelet import curvelet_denoise_batched
+    model, params, raw, levels, key = res
+    noise = 'curvelet'
+    noise_fn = make_pipeline(noise)
+    post_ms, walls, peaks = [], [], []
+
+    def timed_post(fn):
+        def call(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            y = fn(*a, **k)
+            ev[1].record()
+            post_ms.append(ev)
+            return y
+        return call
+
+    zero_counts()
+    with patched(pipeline, 'curvelet_denoise_batched', timed_post):
+        for it in range(CURVELET_CHUNKS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            boxes, scores, mask = detect_chunk(
+                model, params, key, list(range(B * it, B * it + B)), raw,
+                levels, noise_fn)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ('fused_mix_noise',) + NMS_KERNELS}
+    if launches != {'fused_mix_noise': CURVELET_CHUNKS,
+                    MASKS: 2 * CURVELET_CHUNKS, WALK: 2 * CURVELET_CHUNKS}:
+        raise AssertionError(f'{noise}: launches {launches}')
+    kept = mask.cpu().numpy()
+    if not kept.any() or not np.isfinite(boxes.cpu().numpy()).all():
+        raise AssertionError(f'{noise}: no finite detections kept')
+    ms = [a.elapsed_time(b) for a, b in post_ms]
+    rng = np.random.RandomState(16)
+    small = torch.from_numpy(rng.randint(0, 256, CURVELET_SMALL).astype(
+        np.uint8))
+    d = (curvelet_denoise_batched(small.to(DEV)).cpu()
+         - curvelet_denoise_batched(small)).abs()
+    share = (d > 0).double().mean().item()
+    if d.max() > 1 or share > CURVELET_SHARE:
+        raise AssertionError(f'curvelet card vs CPU: max {d.max()}, '
+                             f'share {share}')
+    log(f'main path res101 {noise}: chunks '
+        f'{[f"{w * 1e3:.1f}" for w in walls]} ms (the first builds the '
+        f'windows); the curvelet post-pass '
+        f'{[f"{t:.2f}" for t in ms]} ms by CUDA events; peak memory above '
+        f'the model {[f"{p / 2**30:.2f}" for p in peaks]} GiB; launches '
+        f'{json.dumps(launches)}; card vs CPU at {CURVELET_SMALL}: max '
+        f'|diff| {d.max().item():.0f}, changed {share:.2e}  [{card}]')
+    return {f'res101 {noise}': dict(
+        chunk_ms=[w * 1e3 for w in walls], post_ms=ms,
+        peak_gib=[p / 2**30 for p in peaks], launches=launches,
+        img_per_s=B / statistics.median(walls[1:]),
+        small_max_abs_err=d.max().item(), small_changed=share)}
+
+
+def fdct_cli(card: str) -> dict:
+    """`python -m tpudenoise_torch.cli.fdct` in process on one 600x1000
+    `.npy` image: the written `.npy` is the returned (H, W, 3) u8."""
+    import os.path as osp
+    from tpudenoise_torch.cli import fdct
+    root = osp.join(default_config().ROOT_DIR, 'build', 'chip_smoke_fdct')
+    os.makedirs(root, exist_ok=True)
+    src, dst = osp.join(root, 'in.npy'), osp.join(root, 'out.npy')
+    np.save(src, _demo_image(np.random.RandomState(17), H, W))
+    zero_counts()
+    got, wall = _timed(fdct.main, ['gaussian_var1.0', src, '--out', dst])
+    written = np.load(dst)
+    if written.shape != (H, W, 3) or written.dtype != np.uint8 or not \
+            np.array_equal(written, got.astype(np.uint8)):
+        raise AssertionError(f'cli.fdct wrote {written.shape} '
+                             f'{written.dtype}')
+    launches = {'threefry_draw': launch_counts()['threefry_draw']}
+    log(f'cli.fdct gaussian_var1.0 on a {H}x{W} .npy: wrote {dst} in '
+        f'{wall:.2f} s; launches {json.dumps(launches)}  [{card}]')
+    return {'cli.fdct': dict(wall_s=wall, launches=launches)}
+
+
+def randomized_resnet(net: str, seed: int = 15) -> dict:
+    """The seeded res101 of rrData's two classes with every conv3 kernel
+    and BN statistic of its head drawn at random: the seeded init zeroes
+    conv3, which would leave every probe reading zeros."""
+    model = FasterRCNN(net, num_classes=2)
+    params = seeded(model)
+    rng = np.random.RandomState(seed)
+    for name, p in params.items():
+        if not name.startswith('head.'):
+            continue
+        if name.endswith('conv3.weight'):
+            std = 0.3 / np.sqrt(p[0].numel())
+            p.copy_(torch.from_numpy(rng.randn(*p.shape) * std))
+        elif name.rsplit('.', 1)[-1] in ('gamma', 'var'):
+            p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
+        elif name.rsplit('.', 1)[-1] in ('beta', 'mean'):
+            p.copy_(torch.from_numpy(rng.randn(*p.shape) * 0.1))
+    return params
+
+
+def compute_id_cli(card: str, inp: dict) -> dict:
+    """cli.test --compute-id over the CLI phase's 16 rrData images, res101
+    with a randomized head (`randomized_resnet`), --eval-batch 8: the
+    per-layer TwoNN report logged for every probe and 'head', each ID
+    finite and positive; the loop timed with and without the probes."""
+    import os.path as osp
+
+    from tpudenoise_torch.analysis.twonn import PROBES
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.eval import harness
+    from tpudenoise_torch.models.convert import save_params_npz
+    root = inp['root']
+    npz = osp.join(root, 'res101_probes.npz')
+    save_params_npz(randomized_resnet('res101'), npz)
+    argv = ['--net', 'res101', '--cfg', osp.join(
+        inp['repo'], 'experiments', 'cfgs', 'res101.yml'),
+        '--imdb', 'rrData_2021_test', '--noise', LOOP_NOISE,
+        '--eval-batch', str(B), '--model', npz,
+        '--set', 'DATA_DIR', root, 'ROOT_DIR', root]
+    logged, loops, out = {}, {}, {}
+
+    def logger():
+        class Tee:
+            active_sinks = False
+
+            def log(self, metrics, step=None):
+                logged.update(metrics)
+        return Tee()
+
+    for flag in ((), ('--compute-id',)):
+        loop = []
+        with patched(harness, 'test_net_batched',
+                     lambda fn: timing(fn, loop)), \
+                patched(harness, 'get_metrics_logger', lambda fn: logger):
+            aps, wall, counts, _ = run_cli(cli_test.main, list(flag) + argv)
+        if len(aps) != 10 or not all(np.isfinite(a) for a in aps):
+            raise AssertionError(f'cli.test {flag}: APs {aps}')
+        chunks = CLI_IMAGES // B
+        launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                    + NMS_KERNELS}
+        if launches != {'fused_sap_median_batched': chunks,
+                        MASKS: 2 * chunks, WALK: 2 * chunks}:
+            raise AssertionError(f'cli.test {flag}: launches {launches}')
+        loops[bool(flag)] = loop[0]
+        out['cli.test --compute-id' if flag else 'cli.test (probe weights)'] \
+            = dict(wall_s=wall, eval_s=loop[0], launches=launches)
+    want = [f'twonn_id/{p}' for p in PROBES['res101'] + ['head']]
+    ids = {k: logged.get(k) for k in want}
+    if not all(v is not None and np.isfinite(v) and v > 0
+               for v in ids.values()):
+        raise AssertionError(f'--compute-id: IDs {ids}')
+    out['cli.test --compute-id']['twonn_id'] = ids
+    log(f'cli.test --compute-id res101 over {CLI_IMAGES} images: the loop '
+        f'{loops[True]:.2f} s against {loops[False]:.2f} s without probes '
+        f'({loops[True] / loops[False]:.2f}x); IDs '
+        + ', '.join(f'{k[9:]} {v:.2f}' for k, v in ids.items())
+        + f'  [{card}]')
+    return out
+
+
+def slice15_phase(card: str, res, cli: dict) -> dict:
+    """Phase 5e: `--fast-rng` on the res101 main path and in one training
+    step, the curvelet string through detect_chunk and `cli.fdct`, and
+    `cli.test --compute-id`."""
+    out = fast_rng_paths(res, card)
+    out.update(fast_rng_train(card))
+    out.update(curvelet_path(res, card))
+    out.update(fdct_cli(card))
+    out.update(compute_id_cli(card, cli))
+    return out
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -2911,7 +3278,7 @@ def main() -> int:
 
     done('environment and build')
     rows = (check_kernels(dev) + check_mix_kernels(dev) + check_threefry(dev)
-            + check_sap_stages(dev))
+            + check_hash(dev) + check_sap_stages(dev))
     wavelet = check_wavelet(dev, card)
     done('3 kernels')
     check_small_chunk(dev)
@@ -2941,7 +3308,7 @@ def main() -> int:
     del train_timed
     done('6 profiles')
     # the kernels' device times (`later`): only now, after every timed
-    # chunk
+    # chunk but phase 5e's
     def resolve(d):
         for k, v in d.items():
             if isinstance(v, functools.partial):
@@ -2951,6 +3318,11 @@ def main() -> int:
 
     for r in rows:
         resolve(r)
+    done('6 kernel device times')
+    # phase 5e after the device-time reads: run before them, its curvelet
+    # chunks left the profiler dropping kernel records in those reads
+    e2e.update(slice15_phase(card, res, cli))
+    done('5e fast-rng, curvelet, compute-id')
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
@@ -2983,7 +3355,6 @@ def main() -> int:
                 f"({t['bound_by']}), library {t['library_ms']}  [{card}]")
     if not all(r['launches'] for r in rows):
         raise AssertionError('a kernel was not launched on the main path')
-    done('6 kernel device times')
     log('phases (s): ' + ', '.join(f'{k} {v:.1f}' for k, v in phases.items())
         + f'  [{card}]')
     log(json.dumps({'main_path': e2e, 'dataset_loop': loop,

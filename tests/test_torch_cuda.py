@@ -1003,3 +1003,69 @@ def test_shape_diverse_test_net_card_matches_cpu(dev, tmp_path):
                     matched += bool(len(y) and np.abs(
                         y.reshape(-1, 5) - row).max(1).min() < 0.5)
         assert total > 0 and matched / total >= 0.95, (loop, matched, total)
+
+
+@pytest.mark.parametrize('n', [1, 5, 4097, 600 * 1000 * 3])
+def test_hash_kernel_matches_plain(dev, n):
+    """The hash-stream kernel against its plain version on the card: words
+    and uniforms bit-exact, Box-Muller normals within 2 ulp (the threefry
+    normals' bound); the words equal the CPU's too.  Seed words with the
+    top bit set and odd sizes (scalar stores at a row's end)."""
+    from tpudenoise_torch.core import prng
+    seeds = torch.tensor([[0, 7], [0xFFFFFFFF, 0x80000001],
+                          [12345, 0xDEADBEEF]], dtype=torch.int64)
+    for salt in (1, 16, 43, 72):
+        for mode in ('bits', 'u01', 'normal'):
+            got = prng.hash_draw(seeds.to(dev), n, salt, mode)
+            want = prng.hash_draw_plain(seeds.to(dev), n, salt, mode)
+            torch.cuda.synchronize()
+            if mode == 'normal':
+                ulp = (got.view(torch.int32).long()
+                       - want.view(torch.int32).long()).abs()
+                assert ulp.max() <= 2, (salt, ulp.max())
+            else:
+                torch.testing.assert_close(got, want, atol=0, rtol=0)
+        if n <= 4097:
+            assert torch.equal(prng.hash_draw(seeds.to(dev), n, salt,
+                                              'bits').cpu(),
+                               prng.hash_draw_plain(seeds, n, salt, 'bits'))
+
+
+@pytest.mark.parametrize('noise', ['poisson', 'gamma_var0.3',
+                                   'brownian_var0.09',
+                                   'speckle_bilateral_var1.0'])
+def test_fast_rng_routes_card_match_cpu(dev, noise):
+    """The `--fast-rng` routes on the card against the CPU, keyed and
+    masked: the hash draws are bit-equal (normals within 2 ulp); torch's
+    CUDA and CPU log/exp/cos may differ in a last ulp, so a mod-256
+    distance <= 1 on <= 1e-3 of the elements."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise.pipeline import make_pipeline
+    raw = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (2, 45, 70, 3)).astype(np.uint8))
+    keys = prng.fold_in(prng.PRNGKey(3), np.arange(2))
+    hw = np.array([[45, 70], [40, 61]])
+    fn = make_pipeline(noise, fast_rng=True)
+    for got, want in ((fn.keyed(keys, raw.to(dev)).cpu(), fn.keyed(keys, raw)),
+                      (fn.masked(keys, raw.to(dev), hw).cpu(),
+                       fn.masked(keys, raw, hw))):
+        d = (got - want).abs()
+        d = torch.minimum(d, 256.0 - d)
+        assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+
+
+def test_curvelet_card_matches_cpu(dev):
+    """The curvelet (cuFFT and the bitwise select on the card) against
+    the CPU on two 160x200 images and in the small-image fallback: cuFFT
+    and the CPU's FFT round apart, so as tests/test_torch_curvelet.py
+    holds it against JAX: within 1 level on <= 5e-3 of the pixels (the
+    fallback: within 4 levels, a conjugate pair at the threshold)."""
+    from tpudenoise_torch.denoise.curvelet import curvelet_denoise_batched
+    rng = np.random.RandomState(4)
+    for shape, bound, share in (((2, 160, 200, 3), 1, 5e-3),
+                                ((2, 24, 31, 3), 4, 1.0)):
+        imgs = torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
+        want = curvelet_denoise_batched(imgs)
+        got = curvelet_denoise_batched(imgs.to(dev)).cpu()
+        d = (got - want).abs()
+        assert d.max() <= bound and (d > 0).float().mean() <= share

@@ -156,14 +156,13 @@ def test_pipeline_keyed_matches_jax(pallas_interpret, noise, f32_input):
 
 
 def test_other_plans_raise():
-    """What stays unported raises, naming its ROADMAP item; the plans this
-    test once listed as unported now build on the threefry, bilateral or
-    mix routes (the wavelet ones with the wavelet denoiser)."""
-    for noise, item in (('curvelet', 'item 13'),):
-        with pytest.raises(NotImplementedError, match=item):
-            make_pipeline(noise)
-    with pytest.raises(NotImplementedError, match='item 8'):
-        make_pipeline('speckle_var1.0', fast_rng=True)
+    """The plans this test once listed as unported build on the threefry,
+    bilateral or mix routes (the wavelet ones with the wavelet denoiser,
+    `curvelet` with the curvelet post-pass), and `fast_rng` on the
+    generic and bilateral routes; nothing of the grammar raises."""
+    assert make_pipeline('curvelet').backend == 'cuda:fused_mix'
+    assert (make_pipeline('speckle_var1.0', fast_rng=True).backend
+            == 'cuda:generic+fast_rng')
     for noise, backend in (('original', 'cuda:generic'),
                            ('sap_var0.4', 'cuda:generic'),
                            ('bilateral', 'cuda:generic'),

@@ -90,7 +90,11 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.experiments.grid_diff',
             'tpudenoise_torch.data.imdb',
             'tpudenoise_torch.data.coco',
-            'tpudenoise_torch.data.coco_api'} <= names
+            'tpudenoise_torch.data.coco_api',
+            'tpudenoise_torch.denoise.curvelet',
+            'tpudenoise_torch.cli.fdct',
+            'tpudenoise_torch.analysis.twonn',
+            'tpudenoise_torch.benchmarks.profile_curvelet'} <= names
 
 
 def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):
@@ -143,8 +147,8 @@ def test_config_and_clis_run_without_yaml_cv2_or_pil():
     """With jax, flax, `tpudenoise`, yaml, cv2 and PIL refused: the config
     applies every cfg file of experiments/cfgs and a `--set` list, and
     `python -m tpudenoise_torch.cli.test --help`, `cli.demo --help`,
-    `cli.reval --help` and `experiments.noise_grid --help` (run through
-    runpy under the refusing finder) exit 0."""
+    `cli.reval --help`, `cli.fdct --help` and `experiments.noise_grid
+    --help` (run through runpy under the refusing finder) exit 0."""
     refused = REFUSED + ('yaml', 'cv2', 'PIL')
     code = textwrap.dedent(f'''
         import glob, importlib.abc, runpy, sys
@@ -168,6 +172,7 @@ def test_config_and_clis_run_without_yaml_cv2_or_pil():
         assert c.TEST.SCALES == (120,) and c.ANCHOR_SCALES == [8, 16, 32]
         for name in ('tpudenoise_torch.cli.test', 'tpudenoise_torch.cli.demo',
                      'tpudenoise_torch.cli.reval',
+                     'tpudenoise_torch.cli.fdct',
                      'tpudenoise_torch.experiments.noise_grid'):
             sys.argv = [name, '--help']
             try:
@@ -181,6 +186,7 @@ def test_config_and_clis_run_without_yaml_cv2_or_pil():
     assert res.returncode == 0, res.stderr[-3000:]
     assert 'CLI OK 6 []' in res.stdout, res.stdout[-2000:]
     assert '--eval-batch' in res.stdout and '--conf' in res.stdout
+    assert '--compute-id' in res.stdout and '--keep' in res.stdout
 
 
 def test_training_runs_without_cv2_pil_yaml_optax_or_orbax(tmp_path):

@@ -321,9 +321,9 @@ def test_mix_routes_and_refusals():
     assert make_pipeline('noise_mix_var_low').backend == 'cuda:fused_mix'
     assert (make_pipeline('noise_mix_var_high_bilateral').backend
             == 'cuda:fused_mix+bilateral')
-    for noise, item in (('curvelet', 'item 13'),):
-        with pytest.raises(NotImplementedError, match=item):
-            make_pipeline(noise, mode='TRAIN')
+    # the curvelet's pre-noise is a mix: the fused mix kernel, then the
+    # curvelet post-pass
+    assert make_pipeline('curvelet', mode='TRAIN').backend == 'cuda:fused_mix'
     # the wavelet post-pass runs after the fused mix kernel
     assert (make_pipeline('noise_mix_var_all_wavelet', mode='TRAIN').backend
             == 'cuda:fused_mix')

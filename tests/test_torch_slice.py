@@ -60,6 +60,11 @@ def test_slice_matches_jax(env, noise, monkeypatch):
     assert total > 0 and matched / total >= 0.95, (matched, total)
 
 
+# (image shape, config) -> match_row's JAX vgg16, its init and the port's
+# state dict of it
+_VGG16_INIT = {}
+
+
 def match_row(env, noise, monkeypatch, eval_batch=3, bucket=(160, 224),
               port_imdb=None, loop='test_net_batched'):
     """Both packages' test_net_batched (or, with loop='test_net', their
@@ -98,10 +103,19 @@ def match_row(env, noise, monkeypatch, eval_batch=3, bucket=(160, 224),
     monkeypatch.setattr(jharness, 'make_pipeline', functools.partial(
         jax_make_pipeline, use_pallas=True))
 
-    jm = JRCNN(backbone='vgg16', num_classes=2, cfg=jc, dtype=jnp.float32)
-    jp = jm.init(jax.random.PRNGKey(0), image_shape=bucket or (160, 224))
+    init_key = (bucket or (160, 224), id(jc))
+    if init_key not in _VGG16_INIT:
+        # the JAX model, its init and the port's copy of it, once per
+        # shape and config in a process: every row of a file evaluates
+        # the same weights, and the JAX harness keeps its compiled
+        # forward and postprocess on the model (`_batched_eval_fns`)
+        jm = JRCNN(backbone='vgg16', num_classes=2, cfg=jc,
+                   dtype=jnp.float32)
+        jp = jm.init(jax.random.PRNGKey(0), image_shape=init_key[0])
+        _VGG16_INIT[init_key] = (jm, jp, from_jax_params(
+            jax.tree_util.tree_map(np.asarray, jp)))
+    jm, jp, params = _VGG16_INIT[init_key]
     tm = FasterRCNN('vgg16', num_classes=2, cfg=tc, dtype=torch.float32)
-    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
 
     tag = noise
     d1 = rrData('test', '2021', config=jc)

@@ -91,12 +91,39 @@ def test_test_net_matches_test_net_batched(tmp_path):
                                atol=0.05)
 
 
-def test_test_net_refuses_what_is_not_ported():
+def test_test_net_refuses_what_is_not_ported(tmp_path, monkeypatch,
+                                             capsys):
+    """The mesh and host prep still raise.  compute_id and fast_rng run:
+    test_net over 10 numpy images with both (their parity with the JAX
+    package: tests/test_torch_twonn.py, tests/test_torch_fast_rng.py)
+    builds the counter-hash route and logs a finite, positive TwoNN ID
+    per probe."""
+    from tpudenoise_torch.analysis.twonn import PROBES
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.eval import harness
     from tpudenoise_torch.eval.harness import test_net, test_net_batched
-    for kw, item in (({'compute_id': True}, 'item 14'),
-                     ({'fast_rng': True}, 'item 8')):
-        with pytest.raises(NotImplementedError, match=item):
-            test_net(None, None, None, 'w', 'original', **kw)
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    from tests.test_torch_twonn import _Imdb, _Recorder, randomize_head
+    cfg = default_config()
+    cfg.EXP_DIR, cfg.ROOT_DIR = 'refuse', str(tmp_path)
+    cfg.TEST.SCALES, cfg.TEST.MAX_SIZE = (32,), 48
+    cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.TEST.RPN_POST_NMS_TOP_N = 64, 8
+    model = FasterRCNN('res50', num_classes=2, cfg=cfg, dtype=torch.float32)
+    model.init(torch.Generator().manual_seed(0))
+    randomize_head(model)           # the seeded init's conv3 is zero
+    params = model.state_dict()
+    paths = []
+    for i, im in enumerate(np.random.RandomState(0).randint(
+            0, 256, (10, 32, 48, 3)).astype(np.uint8)):
+        paths.append(str(tmp_path / f'{i}.npy'))
+        np.save(paths[-1], im)
+    rec = _Recorder()
+    monkeypatch.setattr(harness, 'get_metrics_logger', lambda: rec)
+    test_net(model, params, _Imdb(paths), 'w', 'poisson', config=cfg,
+             compute_id=True, fast_rng=True)
+    assert 'backend: cuda:generic+fast_rng' in capsys.readouterr().out
+    ids = [rec.logged[f'twonn_id/{p}'] for p in PROBES['res50'] + ['head']]
+    assert np.all(np.isfinite(ids)) and min(ids) > 0
     for kw, item in (({'mesh': object()}, 'item 16'),
                      ({'device_prep': False}, 'item 6B')):
         with pytest.raises(NotImplementedError, match=item):

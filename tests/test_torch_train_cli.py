@@ -6,8 +6,8 @@ with --weight), two iterations on `tests/fixtures.make_rrdata_fixture`
 through the masked noise.  Each iteration's logged losses (metrics.jsonl)
 within LOSS_RTOL of the JAX CLI's: both compute in bf16 (the CLIs' model
 dtype), whose convolutions and products torch and XLA round in other
-orders; measured 2.5e-4 at most.  Also: the flags that are not ported
-raise naming their ROADMAP items, and --device cuda exits without a GPU.
+orders; measured 2.5e-4 at most.  Also: --distributed raises naming its
+ROADMAP item, --fast-rng trains, and --device cuda exits without a GPU.
 """
 
 import copy
@@ -100,10 +100,28 @@ def test_trainval_cli_beside_jax(env):
 
 @pytest.mark.parametrize('flag,item', [('--fast-rng', 'item 8'),
                                        ('--distributed', 'item 16')])
-def test_unported_flags_raise(flag, item):
+def test_unported_flags_raise(flag, item, env, capsys):
+    """--distributed raises naming its ROADMAP item.  --fast-rng (item 8)
+    is ported: one iteration on poisson through the counter-hash route,
+    finite losses (its noise against the JAX package's:
+    tests/test_torch_fast_rng.py)."""
+    import tpudenoise_torch.core.config as tconfig
     from tpudenoise_torch.cli import trainval
-    with pytest.raises(NotImplementedError, match=item):
-        trainval.main(['--device', 'cpu', flag])
+    if flag == '--distributed':
+        with pytest.raises(NotImplementedError, match=item):
+            trainval.main(['--device', 'cpu', flag])
+        return
+    root, npz = env
+    argv = _argv(root, npz, 'fast_rng')
+    argv[argv.index('--iters') + 1] = '1'
+    state = _run(tconfig, trainval.main, ['--device', 'cpu', flag,
+                                          '--noise', 'poisson'] + argv)
+    assert state.step == 1
+    assert 'backend: cuda:generic+fast_rng' in capsys.readouterr().out
+    losses = _losses(root, 'fast_rng')[1]
+    assert all(np.isfinite(losses[k]) for k in (
+        'rpn_cross_entropy', 'rpn_loss_box', 'cross_entropy', 'loss_box',
+        'total_loss'))
 
 
 def test_cuda_device_without_a_gpu_exits():

@@ -130,6 +130,14 @@ def step_pair(request):
         jfr.RCNNHead = saved
 
 
+# backbone -> the JAX init state: the two vgg16 fixtures start from the
+# same one (the heads' compute dtype leaves the parameters alone), so it
+# is drawn once (~9 s on the CPU).  res50's init runs jitted (~10 s, ~23
+# s eagerly); its draws differ from the eager init's in last bits, and
+# both packages start from it, conv3 and BN then randomized
+_JAX_INIT = {}
+
+
 def run_step(backbone: str, heads: str) -> dict:
     """Both packages' step from the same init: losses, gradients, states."""
     jc, tc = _configs()
@@ -137,7 +145,11 @@ def run_step(backbone: str, heads: str) -> dict:
                      anchor_scales=SCALES, dtype=jnp.float32)
     j_init, j_step = j_make_step(jmodel, jc)
     key = jax.random.PRNGKey(5)
-    jstate = j_init(key, BUCKET)
+    if backbone not in _JAX_INIT:
+        _JAX_INIT[backbone] = (jax.jit(j_init, static_argnums=1)
+                               if backbone == 'res50' else j_init)(key,
+                                                                  BUCKET)
+    jstate = _JAX_INIT[backbone]
     params = jax.tree_util.tree_map(np.asarray, jstate.params)
     if backbone == 'res50':
         from tests.test_torch_resnet import _randomize
@@ -161,8 +173,11 @@ def run_step(backbone: str, heads: str) -> dict:
         model.rcnn.dtype = torch.float32
     sd = from_jax_params(params)
     t_init, t_step = make_train_step(model, tc)
-    state = t_init(torch.Generator().manual_seed(0), BUCKET)
-    state = state._replace(params={k: sd[k].clone() for k in state.params})
+    # the init state on the JAX init's parameters: the seeded draws that
+    # init_state would make (~10 s for vgg16) are replaced by them
+    model.init = lambda generator, image_shape: {
+        k: sd[k].clone() for k in model.state_dict()}
+    state = t_init(None, BUCKET)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     key_np = np.asarray(k_step)
     # the port's gradients through its own loss

@@ -9,7 +9,9 @@ same flags and defaults, a `.npz` of weights, and the eval harness.
 `--eval-batch 1` (the default) runs `test_net`, the one-image loop, and
 larger batches `test_net_batched`; `--set TEST.SCALES "(480, 600)"` runs a
 test pyramid; `voc_*` and `coco_*` datasets come in many image shapes,
-which both loops take through noise buckets.  `--device cuda` (the
+which both loops take through noise buckets.  `--fast-rng` draws the
+noise from the counter hash; `--compute-id` reports the backbone's TwoNN
+intrinsic dimension per probe layer after the loop.  `--device cuda` (the
 default) needs a CUDA GPU and never falls back to the CPU.  Weights come as a `.npz` in the shared layout (written by
 `tpudenoise.models.convert.save_params_npz` on a host with JAX, or by
 `tpudenoise_torch.models.convert.save_params_npz`); a backbone-only file
@@ -46,14 +48,14 @@ def parse_args(argv=None):
     p.add_argument('--strict-ref', action='store_true',
                    help='reproduce the reference test-path quirks')
     p.add_argument('--compute-id', action='store_true',
-                   help='TwoNN intrinsic dimension (not ported yet: '
-                        'ROADMAP Queue 1 item 14)')
+                   help='TwoNN intrinsic dimension per backbone probe '
+                        'layer, reported after the eval')
     p.add_argument('--profile', default=None, metavar='DIR',
                    help='write a torch.profiler Chrome trace of the eval '
                         'into DIR')
     p.add_argument('--fast-rng', action='store_true',
-                   help='counter-hash draws for every generator (not '
-                        'ported yet: ROADMAP Queue 1 item 8)')
+                   help='counter-hash draws for every generator of the '
+                        'generic and bilateral noise routes')
     p.add_argument('--host-prep', action='store_true',
                    help='cv2 resize on the host (not ported yet: ROADMAP '
                         'Queue 1 item 6B, host prep)')
@@ -95,8 +97,6 @@ def load_params(model, model_path, net, generator, image_shape=(608, 1024)):
 def refuse_unported(args):
     for flag, what, item in (
             ('distributed', '--distributed (multi-device eval)', '16'),
-            ('compute_id', '--compute-id (the TwoNN probes)', '14'),
-            ('fast_rng', '--fast-rng', '8'),
             ('host_prep', '--host-prep (cv2 resize on the host)', '6B')):
         if getattr(args, flag, False):
             raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
@@ -143,10 +143,13 @@ def main(argv=None):
             return test_net_batched(model, params, imdb_obj, weights_name,
                                     args.noise, eval_batch=args.eval_batch,
                                     max_per_image=args.max_per_image,
-                                    config=cfg, strict_ref=args.strict_ref)
+                                    config=cfg, strict_ref=args.strict_ref,
+                                    compute_id=args.compute_id,
+                                    fast_rng=args.fast_rng)
         return test_net(model, params, imdb_obj, weights_name, args.noise,
                         max_per_image=args.max_per_image, config=cfg,
-                        strict_ref=args.strict_ref)
+                        strict_ref=args.strict_ref,
+                        compute_id=args.compute_id, fast_rng=args.fast_rng)
 
 
 if __name__ == '__main__':

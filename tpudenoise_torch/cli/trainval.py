@@ -14,8 +14,9 @@ seeded init (`models.convert.merge_pretrained`).  Snapshots go to
 written with `models.convert.save_params_npz` load in the JAX package.
 On a machine without cv2, the datasets' pixels come from `python -m
 tpudenoise_torch.data.cache_pixels --image-set trainval` (and the
-validation set's).  `--fast-rng` and `--distributed` raise
-NotImplementedError naming ROADMAP Queue 1 items 8 and 16.
+validation set's).  `--fast-rng` draws the noise from the counter hash;
+`--distributed` raises NotImplementedError naming ROADMAP Queue 1 item
+16.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ def parse_args(argv=None):
                    help='disable the threaded image-read prefetch '
                         '(exact-resume-safe, on by default)')
     p.add_argument('--fast-rng', action='store_true',
-                   help='counter-hash draws (not ported: Queue 1 item 8)')
+                   help='counter-hash draws for every generator of the '
+                        'generic and bilateral noise routes')
     p.add_argument('--distributed', action='store_true',
                    help='multi-host training (not ported: Queue 1 item 16)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
@@ -67,12 +69,9 @@ def parse_args(argv=None):
 def main(argv=None):
     """Trains; returns the final TrainState."""
     args = parse_args(argv)
-    for flag, what, item in (('distributed', '--distributed (multi-host '
-                              'training)', '16'),
-                             ('fast_rng', '--fast-rng', '8')):
-        if getattr(args, flag):
-            raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
-                                      f'Queue 1 item {item})')
+    if args.distributed:
+        raise NotImplementedError('--distributed (multi-host training) is '
+                                  'not ported yet (ROADMAP Queue 1 item 16)')
     if args.net == 'mobile':
         raise NotImplementedError('--net mobile: backbones/mobilenet.py is '
                                   'not ported yet (ROADMAP Queue 1 item 15)')
@@ -115,7 +114,8 @@ def main(argv=None):
                      pretrained_params=pretrained, max_iters=args.max_iters,
                      noise=args.noise, config=cfg, batch_size=args.batch,
                      bucket=tuple(args.bucket) if args.bucket else None,
-                     prefetch=not args.no_prefetch, device=device)
+                     prefetch=not args.no_prefetch, device=device,
+                     fast_rng=args.fast_rng)
 
 
 if __name__ == '__main__':

@@ -16,7 +16,10 @@ matching jax 0.9 with `jax_threefry_partitionable=True` (its default):
   uniform in [nextafter(-1, 0), 1).
 * `draw_bits`, `draw_uniform` and `draw_normal` take the same draws for
   B keys x N elements on a torch device (the threefry kernel on a GPU);
-* `fold_in_path` derives a flax module's rng (the dropout keys).
+* `fold_in_path` derives a flax module's rng (the dropout keys);
+* `hash_draw` takes the counter-hash stream of `--fast-rng`
+  (`tpudenoise/noise/fast_samplers.py:62-104`) for B seed pairs x N
+  elements on a torch device (the hash-stream kernel on a GPU).
 
 A key is a `(2,)` uint32 array, as `jax.random.PRNGKey` returns.  Every
 function also takes a batch of keys, (..., 2), and returns one result per
@@ -197,7 +200,7 @@ _M32 = 0xFFFFFFFF
 MODES = {'bits': 0, 'uniform': 1, 'normal': 2}
 
 # kernel launches, counted where the wrapper launches the kernel
-launches = {'threefry': 0}
+launches = {'threefry': 0, 'hash': 0}
 
 
 def _fma_t(a, b, c):
@@ -342,3 +345,97 @@ def fold_in_path(key, path) -> np.ndarray:
         else:
             m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, 'big'))
     return fold_in(key, int.from_bytes(m.digest()[:4], 'big'))
+
+
+# ------------------------------------------------------ counter hash --
+#
+# `--fast-rng` swaps the generators' threefry draws for a splitmix-style
+# u32 hash of (flat counter, salt, 64-bit seed) (`fast_samplers.py:62-104`):
+# the counter is each image's flat element index over its own shape, as
+# under the reference's vmap, and the seed pair is the image's key words
+# [0] and [-1] (`_seed_from_key`), which for a threefry key is the key.
+# The plain version does the u32 arithmetic in int64 masked to 32 bits;
+# it serves the CPU and the tests.
+
+HASH_MODES = {'bits': 0, 'u01': 1, 'normal': 2}
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """a * c mod 2^32 for a < 2^32 (int64) and a u32 constant c, in two
+    16-bit halves of c so that no product leaves int64."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def hash_words_plain(seeds: torch.Tensor, n: int, salt: int
+                     ) -> torch.Tensor:
+    """`_hash_words((n,), salt, seed)` for each (K, 2) int64 seed pair:
+    (K, n) int64 u32 words."""
+    s0, s1 = seeds[:, :1] & _M32, seeds[:, 1:] & _M32
+    idx = torch.arange(n, dtype=torch.int64, device=seeds.device)[None]
+    h = (_mul32(idx, 0x9E3779B9) ^ ((salt * 0x85EBCA6B) & _M32)
+         ^ _mul32(s0, 0xC2B2AE35))
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ _mul32(s1, 0x27D4EB2F)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def _u01_plain(words: torch.Tensor) -> torch.Tensor:
+    """`_u01`: the top 24 bits as f32, plus half an ulp, times 2^-24."""
+    return ((words >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def hash_draw_plain(seeds: torch.Tensor, n: int, salt: int, mode: str
+                    ) -> torch.Tensor:
+    """The plain version of the hash-stream kernel: (K, 2) int64 seed
+    pairs -> (K, n) int32 words ('bits'), f32 uniforms in (0, 1) ('u01')
+    or Box-Muller normals of salts salt and salt + 1 ('normal')."""
+    words = hash_words_plain(seeds, n, salt)
+    if mode == 'bits':
+        return (words - ((words >> 31) << 32)).to(torch.int32)
+    u1 = _u01_plain(words)
+    if mode == 'u01':
+        return u1
+    u2 = _u01_plain(hash_words_plain(seeds, n, salt + 1))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+def hash_draw(seeds: torch.Tensor, n: int, salt: int, mode: str
+              ) -> torch.Tensor:
+    """(K, 2) int64 seed pairs (uint32 values) on a device -> (K, n) draws
+    of the counter hash there, modes as `hash_draw_plain`."""
+    if seeds.dim() != 2 or seeds.shape[1] != 2 or seeds.dtype != torch.int64:
+        raise ValueError('seeds must be (K, 2) int64')
+    if not 0 < n < 2**31:
+        raise ValueError(f'n = {n} outside [1, 2**31)')
+    if not 0 <= salt < 2**31 - 1:
+        raise ValueError(f'salt {salt} outside [0, 2**31 - 1)')
+    if seeds.device.type == 'cpu':
+        return hash_draw_plain(seeds, n, salt, mode)
+    if seeds.device.type != 'cuda':
+        raise ValueError(f'unsupported device {seeds.device}')
+    words = (seeds & _M32).to(torch.int32).contiguous()
+    dtype = torch.int32 if mode == 'bits' else torch.float32
+    out = torch.empty((seeds.shape[0], n), dtype=dtype, device=seeds.device)
+    cuda_build.launch('hash_stream', 'hash_draw', words, out,
+                      seeds.shape[0], n, salt, HASH_MODES[mode])
+    launches['hash'] += 1
+    return out
+
+
+def seed_from_key(keys) -> np.ndarray:
+    """`_seed_from_key` for each key of (..., 2): the words [0] and [-1]
+    of the key data."""
+    keys = key_data(keys)
+    return keys[..., [0, -1]]
+
+
+def draw_hash(keys, n: int, salt: int, mode: str, device) -> torch.Tensor:
+    """The counter-hash draw of `mode` seeded from each key of (..., 2),
+    on `device`: (..., n)."""
+    seeds = seed_from_key(keys)
+    return hash_draw(_key_tensor(seeds, device), n, salt, mode).reshape(
+        seeds.shape[:-1] + (n,))

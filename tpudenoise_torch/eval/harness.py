@@ -7,7 +7,11 @@ bucket pad) and the batched detector forward (packed NMS kernel inside)
 TEST.SCALES pyramid).  `test_net_batched` runs chunks over a dataset on
 one device with device prep, datasets of several image shapes (VOC, COCO)
 through per-orientation noise buckets and the bucketed (masked) noise.
-`test_net` is the reference's one-image loop.
+`test_net` is the reference's one-image loop.  With `compute_id` both
+loops also pool the backbone's activations at the TwoNN probe points of
+each image's detector input (`analysis/twonn.py`; one more head forward a
+chunk) and report the per-layer intrinsic dimension after the loop;
+`fast_rng` builds the noise with the counter-hash draws.
 """
 
 from __future__ import annotations
@@ -178,18 +182,22 @@ def chunk_levels(shapes, t_sizes, m_size: int, bucket, device) -> list:
 
 def detect_noisy(model, params, noisy: torch.Tensor, levels,
                  thresh: float = 0.0, max_per_image: int = 100,
-                 on_stage=None):
+                 on_stage=None, probe=None):
     """detect_chunk's stages after the noise: for each level (geom,
     bucket) of levels (`chunk_levels`; one per test scale), device prep
     of the noisy (B, H, W, 3) frames into that level's bucket and the
     forward; then `postprocess_detections_pyramid` over the levels (for
     one level, `postprocess_detections`).  on_stage as in detect_chunk
-    ('prep' and 'forward' once a level, then 'postprocess')."""
+    ('prep' and 'forward' once a level, then 'postprocess'); probe(imgs),
+    when given, receives the first level's prepped batch (the TwoNN
+    probes)."""
     mark = on_stage or (lambda name: None)
     outs = []
     for geom, bucket in levels:
         imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
         mark('prep')
+        if probe is not None and not outs:
+            probe(imgs)
         outs.append(model.forward_test(params, imgs, geom[:, 2:]))
         mark('forward')
 
@@ -207,7 +215,7 @@ def detect_noisy(model, params, noisy: torch.Tensor, levels,
 
 def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor, levels,
                  noise_fn, hw=None, thresh: float = 0.0,
-                 max_per_image: int = 100, on_stage=None):
+                 max_per_image: int = 100, on_stage=None, probe=None):
     """One eval chunk, all on the images' device: `noise_chunk`, then
     `detect_noisy`.
 
@@ -218,14 +226,14 @@ def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor, levels,
     `make_pipeline`; hw as `noise_chunk` (the frames edge-padded
     canvases).  on_stage(name), when given, is called after each of the
     stages 'noise', 'prep', 'forward' and 'postprocess' has been
-    enqueued.  Returns per-class boxes, scores and mask, (B, C-1,
-    max_per_image, ...).
+    enqueued; probe as in `detect_noisy`.  Returns per-class boxes,
+    scores and mask, (B, C-1, max_per_image, ...).
     """
     noisy = noise_chunk(key, idx, raw_u8, noise_fn, hw)
     if on_stage:
         on_stage('noise')
     return detect_noisy(model, params, noisy, levels, thresh,
-                        max_per_image, on_stage)
+                        max_per_image, on_stage, probe)
 
 
 def _not_ported(what: str, item: str):
@@ -247,17 +255,35 @@ def _collect(all_boxes, i, bx, sc, mk, max_per_image: int):
             _log_det_scores(sc[cls - 1][mk[cls - 1]][:, None], i)
 
 
-def _refuse(compute_id: bool, fast_rng: bool, mesh=None,
-            device_prep: bool = True):
-    if compute_id:
-        _not_ported('compute_id (TwoNN probes)', 'Queue 1 item 14')
+def _refuse(mesh=None, device_prep: bool = True):
     if mesh is not None:
         _not_ported('the device mesh', 'Queue 1 item 16')
     if not device_prep:
         _not_ported('host prep (device_prep=False: a cv2 resize on the '
                     'host)', 'Queue 1 item 6B')
-    if fast_rng:
-        _not_ported('fast_rng', 'Queue 1 item 8')
+
+
+class _Probes:
+    """The compute_id features: per probe point, one pooled row per
+    image, in image order (`analysis.twonn.make_probe_fn` over each
+    chunk's detector input, pooled over each image's valid (oh, ow))."""
+
+    def __init__(self, model, params, t_size: int, m_size: int):
+        from tpudenoise_torch.analysis.twonn import make_probe_fn
+        self.fn = make_probe_fn(model)
+        self.params, self.t_size, self.m_size = params, t_size, m_size
+        self.feats = {}
+
+    def hook(self, shapes, n_real: int):
+        """probe(imgs) for detect_chunk, shapes the chunk's raw (h, w)."""
+        hw = [rescale_geometry(h, w, self.t_size, self.m_size)[1:]
+              for h, w in shapes]
+
+        def probe(imgs):
+            for p, v in self.fn(self.params, imgs, hw).items():
+                self.feats.setdefault(p, []).extend(
+                    v[:n_real].cpu().numpy())
+        return probe
 
 
 def _raw_shapes(imdb_obj):
@@ -288,7 +314,7 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     Images are read through `utils.image_io`: `.npy` pixels need neither
     cv2 nor PIL.  Writes detections.pkl and returns
     imdb_obj.evaluate_detections(...)."""
-    _refuse(compute_id, fast_rng, mesh, device_prep)
+    _refuse(mesh, device_prep)
     C = config or model.cfg
     set_matmul_precision()
     device = next(model.parameters()).device
@@ -296,12 +322,15 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(num_classes)]
     output_dir = get_output_dir(imdb_obj.name, weights_filename, C)
-    noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref)
+    noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref,
+                             fast_rng=fast_rng)
     print(f'noise pipeline backend: {noise_fn.backend}')
     key = prng.PRNGKey(C.RNG_SEED)
     t_sizes, m_size = tuple(C.TEST.SCALES), C.TEST.MAX_SIZE
     if len(t_sizes) > 1:
         print(f'multi-scale test pyramid: SCALES={t_sizes}')
+    probes = (_Probes(model, params, t_sizes[0], m_size) if compute_id
+              else None)
 
     raw_shapes = _raw_shapes(imdb_obj)
     noise_buckets = derive_noise_buckets(raw_shapes)
@@ -344,7 +373,8 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
             res = detect_chunk(model, params, key, chunk, raw,
                                levels[shapes], noise_fn,
                                shapes if noise_buckets else None, thresh,
-                               max_per_image)
+                               max_per_image, probe=probes and probes.hook(
+                                   shapes, n_real))
             bx, sc, mk = (t.cpu().numpy() for t in res)
             timers['im_detect'].toc()
             timers['misc'].tic()
@@ -358,7 +388,7 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
 
     with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    _finish_eval(output_dir)
+    _finish_eval(output_dir, probes and probes.feats)
     return imdb_obj.evaluate_detections(all_boxes, output_dir)
 
 
@@ -382,7 +412,6 @@ def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
     coordinates: at most ~0.05 u8 levels, `tpudenoise/eval/harness.py:
     386-398`).  Writes detections.pkl and returns
     imdb_obj.evaluate_detections(...)."""
-    _refuse(compute_id, fast_rng)
     C = config or model.cfg
     set_matmul_precision()
     device = next(model.parameters()).device
@@ -390,12 +419,15 @@ def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(num_classes)]
     output_dir = get_output_dir(imdb_obj.name, weights_filename, C)
-    noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref)
+    noise_fn = make_pipeline(noise, mode='TEST', strict_ref=strict_ref,
+                             fast_rng=fast_rng)
     print(f'noise pipeline backend: {noise_fn.backend}')
     key = prng.PRNGKey(C.RNG_SEED)
     t_sizes, m_size = tuple(C.TEST.SCALES), C.TEST.MAX_SIZE
     if len(t_sizes) > 1:
         print(f'multi-scale test pyramid: SCALES={t_sizes}')
+    probes = (_Probes(model, params, t_sizes[0], m_size) if compute_id
+              else None)
     raw_shapes = _raw_shapes(imdb_obj)
     # strict_ref keeps the exact-size noise (one shape per distinct raw
     # shape): bucketing changes the draws' layout
@@ -418,7 +450,7 @@ def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
                             noise_fn, hw)[:, :h0, :w0]
         res = detect_noisy(model, params, noisy, chunk_levels(
             [(h0, w0)], t_sizes, m_size, bucket, device), thresh,
-            max_per_image)
+            max_per_image, probe=probes and probes.hook([(h0, w0)], 1))
         bx, sc, mk = (t.cpu().numpy()[0] for t in res)
         timers['im_detect'].toc()
         timers['misc'].tic()
@@ -431,12 +463,24 @@ def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
 
     with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    _finish_eval(output_dir)
+    _finish_eval(output_dir, probes and probes.feats)
     return imdb_obj.evaluate_detections(all_boxes, output_dir)
 
 
-def _finish_eval(output_dir):
-    """After the loop: the evaluation's banner.  The JAX package prints
-    the TwoNN report of the compute_id features first; that arrives with
-    compute_id (Queue 1 item 14), which both loops refuse."""
+def _finish_eval(output_dir, feats=None):
+    """After the loop: with compute_id features of 10 images or more, the
+    TwoNN intrinsic dimension per probe layer (10 resamples), printed and
+    logged as twonn_id/<probe> and twonn_id_err/<probe>; then the
+    evaluation's banner."""
+    if feats and len(next(iter(feats.values()))) >= 10:
+        from tpudenoise_torch.analysis.twonn import per_layer_id
+        ids = per_layer_id({p: np.stack(v) for p, v in feats.items()},
+                           nres=10)
+        print('TwoNN intrinsic dimension per probe layer:')
+        logs = {}
+        for p, (mean_id, err_id) in ids.items():
+            print(f'  {p:28s} {mean_id:6.2f} +/- {err_id:.2f}')
+            logs[f'twonn_id/{p}'] = mean_id
+            logs[f'twonn_id_err/{p}'] = err_id
+        get_metrics_logger().log(logs)
     print(f'Evaluating detections (artifacts in {output_dir})')

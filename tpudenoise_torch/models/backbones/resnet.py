@@ -87,7 +87,10 @@ class Bottleneck(nn.Module):
         self.conv3 = _conv(depth_bottleneck, depth, 1)
         self.bn3 = bn(depth)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, record=None, name: str = ''
+                ) -> torch.Tensor:
+        """record(name + '/conv3', tensor), when given, receives conv3's
+        output before its BN (the TwoNN probes)."""
         if hasattr(self, 'shortcut'):
             sc = self.shortcut_bn(conv(x, self.shortcut, self.dtype,
                                        self.stride))
@@ -95,8 +98,10 @@ class Bottleneck(nn.Module):
             sc = x[:, :, ::self.stride, ::self.stride]
         r = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
         r = F.relu(self.bn2(conv(r, self.conv2, self.dtype, self.stride)))
-        r = self.bn3(conv(r, self.conv3, self.dtype))
-        return F.relu(sc + r)
+        r = conv(r, self.conv3, self.dtype)
+        if record is not None:
+            record(name + '/conv3', r)
+        return F.relu(sc + self.bn3(r))
 
 
 class ResNetBlock(nn.Sequential):
@@ -111,6 +116,14 @@ class ResNetBlock(nn.Sequential):
             self.add_module(f'unit_{i + 1}', Bottleneck(
                 depth_in if i == 0 else 4 * base_depth, base_depth,
                 stride if i == num_units - 1 else 1, dtype, trainable_bn))
+
+    def forward(self, x: torch.Tensor, record=None, name: str = ''
+                ) -> torch.Tensor:
+        """The units in order; record as `Bottleneck.forward`, each unit
+        named name + '/unit_i'."""
+        for unit_name, unit in self.named_children():
+            x = unit(x, record, f'{name}/{unit_name}')
+        return x
 
 
 def reset_resnet(module: nn.Module, generator: torch.Generator):
@@ -145,13 +158,18 @@ class ResNetHead(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         reset_resnet(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, record=None) -> torch.Tensor:
+        """record(name, tensor), when given, receives each unit's conv3
+        output before its BN, as 'block1/unit_1/conv3' (the TwoNN
+        probes)."""
         x = F.relu(self.conv1_bn(conv(x, self.conv1, self.dtype, 2)))
         # the reference zero-pads (1, 1) and pools 3x3/2 VALID; after the
         # ReLU every window holds a value >= 0, so max_pool2d's -inf
         # padding gives the same maximum
         x = F.max_pool2d(x, 3, 2, padding=1)
-        return self.block3(self.block2(self.block1(x)))
+        for name in ('block1', 'block2', 'block3'):
+            x = getattr(self, name)(x, record, name)
+        return x
 
 
 class ResNetTail(nn.Module):

@@ -44,12 +44,17 @@ class VGG16Head(nn.Module):
             lecun_normal_(layer.weight, layer.weight[0].numel(), generator)
             nn.init.zeros_(layer.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, record=None) -> torch.Tensor:
+        """record(name, tensor), when given, receives each conv's output
+        before its ReLU, by layer name (the TwoNN probes)."""
         x = x.to(self.dtype)
         for si, (reps, _) in enumerate(STAGES):
             for ri in range(reps):
-                x = F.relu(conv(x, getattr(self, f'conv{si + 1}_{ri + 1}'),
-                                self.dtype))
+                name = f'conv{si + 1}_{ri + 1}'
+                x = conv(x, getattr(self, name), self.dtype)
+                if record is not None:
+                    record(name, x)
+                x = F.relu(x)
             if si < 4:   # flax SAME == ceil_mode for odd extents
                 x = F.max_pool2d(x, 2, 2, ceil_mode=True)
         return x

@@ -16,6 +16,12 @@
   batched over images with one key each; `brownian` and `periodic` take
   `hw`, each image's valid (h, w) on a bucket-padded canvas (host ints,
   so no shape or loop waits on the device).
+* `fast_bits=True` (`--fast-rng`): each stochastic generator draws from
+  the counter hash (`prng.draw_hash`) in place of threefry, salts as the
+  reference's registry (`generators.py:52-60`): poisson 1/8/16-19, gamma
+  32-43 (`samplers.py`), gaussian 64-65, speckle 66-67, uniform 68,
+  rayleigh 69, s&p 70-71, brownian 72-73, so that no two draws of one
+  key share a (salt, counter) pair.
 """
 
 from __future__ import annotations
@@ -145,6 +151,7 @@ def bloom_apply_scan(images: torch.Tensor, params: torch.Tensor
 # does.  The tests hold each form bit-equal on the floats.
 
 _INV255 = float(np.float32(1.0 / 255.0))
+_F32 = np.float32
 
 
 def to_unit(img_u8: torch.Tensor) -> torch.Tensor:
@@ -157,6 +164,13 @@ def _unit_plus(img_u8: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return prng._fma_t(img_u8, _INV255, t)
 
 
+def _plus_unit(t: torch.Tensor, scale, img_u8: torch.Tensor
+               ) -> torch.Tensor:
+    """t * scale + to_unit(img) with the generator's multiply contracted
+    into the add, as XLA contracts the counter-hash generators."""
+    return prng._fma_t(t, scale, to_unit(img_u8))
+
+
 def _n(x: torch.Tensor) -> int:
     return x[0].numel()
 
@@ -165,10 +179,16 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def gaussian(keys, img_u8: torch.Tensor, var) -> torch.Tensor:
+def gaussian(keys, img_u8: torch.Tensor, var,
+             fast_bits: bool = False) -> torch.Tensor:
     """x + N(0, var), clipped to [0, 1]; var a float or a (B,) float32
     tensor (the per-image level of the randomized-level quirk)."""
     n, dev = _n(img_u8), img_u8.device
+    if fast_bits:
+        sd = (torch.sqrt(var.to(torch.float32))[:, None, None, None]
+              if isinstance(var, torch.Tensor) else _f32(np.sqrt(_F32(var))))
+        z = samplers._normal(keys, n, 64, dev).reshape(img_u8.shape)
+        return torch.clamp(_plus_unit(z, sd, img_u8), 0.0, 1.0)
     if isinstance(var, torch.Tensor):
         factor = torch.sqrt(var.to(torch.float32)) * float(prng._SQRT2)
         noise = prng.draw_erf_inv(keys, n, dev) * factor[:, None]
@@ -179,54 +199,78 @@ def gaussian(keys, img_u8: torch.Tensor, var) -> torch.Tensor:
 
 
 def salt_and_pepper(keys, img_u8: torch.Tensor, amount: float,
-                    salt_vs_pepper: float = 0.5) -> torch.Tensor:
+                    salt_vs_pepper: float = 0.5,
+                    fast_bits: bool = False) -> torch.Tensor:
     """`amount` of the elements flipped to 1 (salt, p = salt_vs_pepper) or
-    0, from two uniform fields of split(key); the rest to_unit(img)."""
-    u = prng.draw_uniform(prng.split(keys), _n(img_u8), img_u8.device)
+    0, from two uniform fields of split(key) (or the hash's salts 70 and
+    71); the rest to_unit(img)."""
+    n, dev = _n(img_u8), img_u8.device
+    if fast_bits:
+        u = torch.stack([samplers._u01(keys, n, s, dev) for s in (70, 71)],
+                        1)
+    else:
+        u = prng.draw_uniform(prng.split(keys), n, dev)
     flipped = u[:, 0].reshape(img_u8.shape) < _f32(amount)
     salted = u[:, 1].reshape(img_u8.shape) < _f32(salt_vs_pepper)
     out = torch.where(flipped & salted, 1.0, to_unit(img_u8))
     return torch.where(flipped & ~salted, 0.0, out)
 
 
-def speckle(keys, img_u8: torch.Tensor, var: float) -> torch.Tensor:
+def speckle(keys, img_u8: torch.Tensor, var: float,
+            fast_bits: bool = False) -> torch.Tensor:
     """x + x * N(0, var), clipped to [0, 1]."""
-    noise = prng.draw_normal(keys, _n(img_u8), img_u8.device,
-                             np.sqrt(np.float32(var))).reshape(img_u8.shape)
+    n, dev = _n(img_u8), img_u8.device
+    sd = np.sqrt(np.float32(var))
+    noise = (samplers._normal(keys, n, 66, dev) * float(sd) if fast_bits
+             else prng.draw_normal(keys, n, dev, sd)).reshape(img_u8.shape)
     x01 = to_unit(img_u8)
     return torch.clamp(prng._fma_t(x01, noise, x01), 0.0, 1.0)
 
 
-def uniform_add(keys, img_u8: torch.Tensor, high: float) -> torch.Tensor:
+def uniform_add(keys, img_u8: torch.Tensor, high: float,
+                fast_bits: bool = False) -> torch.Tensor:
     """U(0, high) added to to_unit(img), no clip."""
-    u = prng.draw_uniform(keys, _n(img_u8), img_u8.device, 0.0, high)
+    n, dev = _n(img_u8), img_u8.device
+    if fast_bits:
+        return _plus_unit(samplers._u01(keys, n, 68, dev).reshape(
+            img_u8.shape), _f32(high), img_u8)
+    u = prng.draw_uniform(keys, n, dev, 0.0, high)
     return _unit_plus(img_u8, u.reshape(img_u8.shape))
 
 
 def gamma_add(keys, img_u8: torch.Tensor, scale: float,
-              a: float = 1.99) -> torch.Tensor:
+              a: float = 1.99, fast_bits: bool = False) -> torch.Tensor:
     """Gamma(a = 1.99, scale) added to to_unit(img), no clip."""
-    g = samplers.gamma_fixed(keys, a, _n(img_u8), img_u8.device)
-    return _unit_plus(img_u8, g.reshape(img_u8.shape) * _f32(scale))
+    g = samplers.gamma_fixed(keys, a, _n(img_u8), img_u8.device,
+                             fast_bits).reshape(img_u8.shape)
+    if fast_bits:
+        return _plus_unit(g, _f32(scale), img_u8)
+    return _unit_plus(img_u8, g * _f32(scale))
 
 
-def rayleigh_add(keys, img_u8: torch.Tensor, scale: float) -> torch.Tensor:
+def rayleigh_add(keys, img_u8: torch.Tensor, scale: float,
+                 fast_bits: bool = False) -> torch.Tensor:
     """Rayleigh(scale) = scale * sqrt(-2 ln U) added to to_unit(img), no
     clip."""
-    u = prng.draw_uniform(keys, _n(img_u8), img_u8.device,
-                          np.finfo(np.float32).tiny, 1.0)
-    r = torch.sqrt(-2.0 * torch.log(u)) * _f32(scale)
-    return _unit_plus(img_u8, r.reshape(img_u8.shape))
+    n, dev = _n(img_u8), img_u8.device
+    u = (samplers._u01(keys, n, 69, dev) if fast_bits
+         else prng.draw_uniform(keys, n, dev, np.finfo(np.float32).tiny,
+                                1.0))
+    r = torch.sqrt(-2.0 * torch.log(u)).reshape(img_u8.shape)
+    if fast_bits:
+        return _plus_unit(r, _f32(scale), img_u8)
+    return _unit_plus(img_u8, r * _f32(scale))
 
 
-def poisson(keys, img_u8: torch.Tensor) -> torch.Tensor:
+def poisson(keys, img_u8: torch.Tensor,
+            fast_bits: bool = False) -> torch.Tensor:
     """skimage's poisson mode: vals = 2^ceil(log2(distinct u8 values)),
     Poisson(x * vals) / vals, clipped to [0, 1]."""
     counts = torch.stack([u8_unique_count(im) for im in img_u8])
     vals = torch.exp2(torch.ceil(torch.log2(counts.to(torch.float64)))).to(
         torch.float32)[:, None, None, None]
     lam = (to_unit(img_u8) * vals).reshape(img_u8.shape[0], -1)
-    k = samplers.poisson_fixed(keys, lam).reshape(img_u8.shape)
+    k = samplers.poisson_fixed(keys, lam, fast_bits).reshape(img_u8.shape)
     return torch.clamp(k / vals, 0.0, 1.0)
 
 
@@ -266,7 +310,8 @@ def _hw_rows(hw, b: int):
     return [(int(h), int(w)) for h, w in hw]
 
 
-def brownian(keys, img_u8: torch.Tensor, dt: float, hw=None) -> torch.Tensor:
+def brownian(keys, img_u8: torch.Tensor, dt: float, hw=None,
+             fast_bits: bool = False) -> torch.Tensor:
     """A Brownian path over each image's element raster: the exclusive
     prefix of sqrt(dt) * N(0, 1), times 255, wrap-cast to u8, then a
     saturating add.  The prefix runs in the fixed log-step order of
@@ -278,8 +323,10 @@ def brownian(keys, img_u8: torch.Tensor, dt: float, hw=None) -> torch.Tensor:
     prefix, so each valid element's path is the prefix over the valid
     raster."""
     b, h, w, _ = img_u8.shape
-    db = prng.draw_normal(keys, _n(img_u8), img_u8.device,
-                          np.sqrt(np.float32(dt))).reshape(b, h, 3 * w)
+    n, dev = _n(img_u8), img_u8.device
+    sd = np.sqrt(np.float32(dt))
+    db = (samplers._normal(keys, n, 72, dev) * float(sd) if fast_bits
+          else prng.draw_normal(keys, n, dev, sd)).reshape(b, h, 3 * w)
     for i, (vh, vw) in enumerate(_hw_rows(hw, b) or ()):
         db[i, vh:] = 0.0
         db[i, :, 3 * vw:] = 0.0

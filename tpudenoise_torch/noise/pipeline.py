@@ -24,9 +24,18 @@ reference's.  A mix table outside the fused kernels goes through the mix
 scan (`_apply_specs_batched`, `pipeline.py:182-283`): per image, the
 entry draw of `mix_prologue.entry_draws` (the fused routes' own draw, so
 both pick the same kind for a key), then the drawn entry's template with
-its level as float32 (`_group_specs`).  Curvelet denoising (ROADMAP Queue
-1 item 13) and `fast_rng` (item 8) raise NotImplementedError naming their
-items; nothing falls back to another route.
+its level as float32 (`_group_specs`).  The curvelet post-pass
+(`denoise/curvelet.py`, `torch.fft`) runs 4 images at a time, as the
+reference's `lax.map` (`pipeline.py:305-316`).  Nothing falls back to
+another route.
+
+`fast_rng=True` (`--fast-rng`) draws every stochastic generator of the
+generic and bilateral routes from the counter hash (the hash-stream
+kernel; `generators.py`, `samplers.py`) and adds '+fast_rng' to their
+backend, as the reference's `pipeline.py:435, 628`.  The sap, gaussian
+and mix routes draw from their kernels' own coordinate hash and take no
+notice of it, their bucketed forms included (`pipeline.py:323-390,
+476-588`), as in the reference.
 
 The returned callable `fn(key, images)` takes a (2,) uint32 key and
 (B, H, W, 3) uint8 or float32 u8-domain images on any device and returns
@@ -56,6 +65,7 @@ import torch
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.denoise import stencils
 from tpudenoise_torch.denoise.bilateral import bilateral_batched
+from tpudenoise_torch.denoise.curvelet import curvelet_denoise_batched
 from tpudenoise_torch.denoise.wavelet import denoise_wavelet_batched
 from tpudenoise_torch.noise import generators as G
 from tpudenoise_torch.noise.bloom import bloom_batched
@@ -170,18 +180,10 @@ class _PerImagePipeline:
                                   G._hw_rows(hw, images.shape[0]))
 
 
-_POST_ITEM = {Denoise.CURVELET: 'Queue 1 item 13'}
-
 # kinds whose `_wavelet` variant denoises the noisy floats; the others
 # cast to u8 first (`pipeline.py:126-127`)
 _WAVELET_ON_FLOAT = {Kind.GAUSSIAN, Kind.SAP, Kind.SPECKLE, Kind.UNIFORM,
                      Kind.GAMMA, Kind.RAYLEIGH}
-
-
-def _refuse(denoise: Denoise):
-    raise NotImplementedError(
-        f'the {denoise.name.lower()} denoiser is not ported yet (ROADMAP '
-        f'{_POST_ITEM[denoise]})')
 
 
 # the per-spec denoise and the post-pass filters: (image, round_u8)
@@ -193,14 +195,16 @@ _FILTERS = {
 }
 
 
-def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None, level=None):
+def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None, level=None,
+           fast: bool = False):
     """The generator of one spec over (B, H, W, 3) float32 u8-domain
     images, one key each: (noisy images, 'unit' or 'u8' domain).  hw:
     per image valid (h, w) host ints, for the generators whose raster
     depends on it (the elementwise ones need none).  level: a float32
     level in place of spec.level (a mix entry's, `_group_specs`); each
     generator computes with its level in float32, so a traced level and
-    a constant one give the same bits, as in the reference."""
+    a constant one give the same bits, as in the reference.  fast: the
+    counter-hash draws (`fast_bits`)."""
     kind = spec.kind
     lvl = spec.level if level is None else float(np.float32(level))
     if kind == Kind.GAUSSIAN:
@@ -211,21 +215,21 @@ def _noisy(spec: NoiseSpec, keys, img: torch.Tensor, hw=None, level=None):
                 GAUSSIAN_RANDOM_LEVELS, np.float32)[idx]).to(img.device)
         else:
             kn, var = keys, lvl
-        return G.gaussian(kn, img, var), 'unit'
+        return G.gaussian(kn, img, var, fast_bits=fast), 'unit'
     if kind == Kind.POISSON:
-        return G.poisson(keys, img), 'unit'
+        return G.poisson(keys, img, fast_bits=fast), 'unit'
     if kind == Kind.SAP:
-        return G.salt_and_pepper(keys, img, lvl), 'unit'
+        return G.salt_and_pepper(keys, img, lvl, fast_bits=fast), 'unit'
     if kind == Kind.SPECKLE:
-        return G.speckle(keys, img, lvl), 'unit'
+        return G.speckle(keys, img, lvl, fast_bits=fast), 'unit'
     if kind == Kind.UNIFORM:
-        return G.uniform_add(keys, img, lvl), 'unit'
+        return G.uniform_add(keys, img, lvl, fast_bits=fast), 'unit'
     if kind == Kind.GAMMA:
-        return G.gamma_add(keys, img, lvl), 'unit'
+        return G.gamma_add(keys, img, lvl, fast_bits=fast), 'unit'
     if kind == Kind.RAYLEIGH:
-        return G.rayleigh_add(keys, img, lvl), 'unit'
+        return G.rayleigh_add(keys, img, lvl, fast_bits=fast), 'unit'
     if kind == Kind.BROWNIAN:
-        return G.brownian(keys, img, lvl, hw), 'u8'
+        return G.brownian(keys, img, lvl, hw, fast_bits=fast), 'u8'
     if kind == Kind.PERIODIC:
         return G.periodic(img, lvl, hw), 'u8'
     if kind == Kind.QUANT:
@@ -247,12 +251,12 @@ def _wavelet_u8(images01: torch.Tensor, hw=None) -> torch.Tensor:
 
 
 def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
-               hw=None, level=None) -> torch.Tensor:
+               hw=None, level=None, fast: bool = False) -> torch.Tensor:
     """One (kind, level, denoise) combination over (B, H, W, 3) float32
-    u8-domain images with one key each ((B, 2) uint32), hw and level as
-    `_noisy`.  Returns u8-domain float32, or the [0, 1] floats of plain
-    gaussian (a reference quirk)."""
-    noisy, dom = _noisy(spec, keys, images, hw, level)
+    u8-domain images with one key each ((B, 2) uint32), hw, level and
+    fast as `_noisy`.  Returns u8-domain float32, or the [0, 1] floats of
+    plain gaussian (a reference quirk)."""
+    noisy, dom = _noisy(spec, keys, images, hw, level, fast)
     u8 = G.wrap_cast_u8(255.0 * noisy) if dom == 'unit' else noisy
     d = spec.denoise
     if d == Denoise.NONE:
@@ -262,8 +266,6 @@ def apply_spec(spec: NoiseSpec, keys, images: torch.Tensor,
     if d == Denoise.WAVELET:
         return _wavelet_u8(noisy if spec.kind in _WAVELET_ON_FLOAT
                            else G.to_unit(u8), hw)
-    if d in _POST_ITEM:
-        _refuse(d)
     return _FILTERS[d](u8, True)
 
 
@@ -276,8 +278,10 @@ def apply_post(denoise: Denoise, images: torch.Tensor,
         return images
     if denoise == Denoise.WAVELET:
         return _wavelet_u8(images if unit_float else G.to_unit(images), hw)
-    if denoise in _POST_ITEM:
-        _refuse(denoise)
+    if denoise == Denoise.CURVELET:
+        # over the whole canvas, hw unused: the reference's bucketed
+        # post-pass passes no hw to the curvelet (`pipeline.py:305-316`)
+        return curvelet_denoise_batched(images)
     return _FILTERS[denoise](images, not unit_float)
 
 
@@ -314,16 +318,16 @@ def _group_specs(specs):
 
 
 def _apply_specs_batched(specs, keys, images: torch.Tensor,
-                         hw=None) -> torch.Tensor:
+                         hw=None, fast: bool = False) -> torch.Tensor:
     """Per-image spec application over a batch of (B, H, W, 3) float32
-    images with one key each; hw as `_noisy`.  One spec: every image.  A
-    mix table: the mix scan, per image `kc, ka = split(k)`, the entry
-    `randint(kc, (), 0, E)`, then that entry's template with key ka and,
-    for the traced kinds, its level as float32.  The images that drew the
+    images with one key each; hw and fast as `_noisy`.  One spec: every
+    image.  A mix table: the mix scan, per image `kc, ka = split(k)`, the
+    entry `randint(kc, (), 0, E)`, then that entry's template with key ka
+    and, for the traced kinds, its level as float32.  The images that drew the
     same template and level run as one batch; each image's output is the
     one it gets alone."""
     if len(specs) == 1:
-        return apply_spec(specs[0], keys, images, hw)
+        return apply_spec(specs[0], keys, images, hw, fast=fast)
     templates, traced, eb, el = _group_specs(specs)
     branch, level, _, ka = entry_draws(keys, eb, el)
     rows = G._hw_rows(hw, images.shape[0])
@@ -336,7 +340,7 @@ def _apply_specs_batched(specs, keys, images: torch.Tensor,
         out[sel] = apply_spec(
             templates[t], ka[ids], images[sel],
             None if rows is None else [rows[i] for i in ids],
-            None if lv is None else np.float32(lv))
+            None if lv is None else np.float32(lv), fast)
     return out
 
 
@@ -373,54 +377,56 @@ def _mix_pipeline(plan: NoisePlan) -> _PerImagePipeline:
         apply_masked)
 
 
-def _bilateral_pipeline(spec: NoiseSpec, n_stages: int) -> _PerImagePipeline:
+def _bilateral_pipeline(spec: NoiseSpec, n_stages: int,
+                        fast: bool = False) -> _PerImagePipeline:
     """The generator without its bilateral, then each bilateral stage (the
     spec's and the post-pass) as one pass of the bilateral kernel over
-    the batch."""
+    the batch; fast: the counter-hash draws."""
     stripped = (dataclasses.replace(spec, denoise=Denoise.NONE)
                 if spec.denoise == Denoise.BILATERAL else spec)
 
     def apply(keys, images, hw=None):
         out = _apply_specs_batched((stripped,), keys,
-                                   images.to(torch.float32), hw)
+                                   images.to(torch.float32), hw, fast)
         for _ in range(n_stages):
             out = bilateral_batched(out)
         return out
 
-    return _PerImagePipeline(f'cuda:bilateral_x{n_stages}', apply)
+    return _PerImagePipeline(f'cuda:bilateral_x{n_stages}'
+                             + ('+fast_rng' if fast else ''), apply)
 
 
-def _generic_pipeline(plan: NoisePlan) -> _PerImagePipeline:
-    """The generator (threefry draws; bloom through the bloom kernel; a
-    mix table through the mix scan), its denoise and the post-pass."""
+def _generic_pipeline(plan: NoisePlan, fast: bool = False
+                      ) -> _PerImagePipeline:
+    """The generator (threefry draws, or the counter hash when fast;
+    bloom through the bloom kernel; a mix table through the mix scan),
+    its denoise and the post-pass."""
     post = _post_batched_for(plan,
                              all(s.unit_float_output for s in plan.specs))
 
     def apply(keys, images, hw=None):
         return post(_apply_specs_batched(plan.specs, keys,
-                                         images.to(torch.float32), hw), hw)
+                                         images.to(torch.float32), hw,
+                                         fast), hw)
 
-    return _PerImagePipeline('cuda:generic', apply)
+    return _PerImagePipeline('cuda:generic' + ('+fast_rng' if fast else ''),
+                             apply)
 
 
 def make_pipeline(plan: NoisePlan | str, mode: str = 'TEST',
                   strict_ref: bool = False, fast_rng: bool = False):
-    """Build the pipeline for a parsed plan (or raw noise string)."""
-    if fast_rng:
-        raise NotImplementedError(
-            'fast_rng (counter-hash draws for every generator) is not ported '
-            'yet (ROADMAP Queue 1 item 8)')
+    """Build the pipeline for a parsed plan (or raw noise string);
+    fast_rng: the counter-hash draws on the generic and bilateral routes
+    (the others ignore it, as the reference's)."""
+    fast = bool(fast_rng)
     if isinstance(plan, str):
         plan = parse(plan, mode=mode, strict_ref=strict_ref)
     specs = plan.specs
-    for d in (plan.post_denoise, *(s.denoise for s in specs)):
-        if d in _POST_ITEM:
-            _refuse(d)
     if len(specs) > 1:
         if all(s.denoise == Denoise.NONE and not s.is_random_level
                for s in specs):
             return _mix_pipeline(plan)
-        return _generic_pipeline(plan)
+        return _generic_pipeline(plan, fast)
     s = specs[0]
     post = plan.post_denoise
     if (s.kind == Kind.SAP and s.denoise == Denoise.MEDIAN
@@ -435,5 +441,5 @@ def make_pipeline(plan: NoisePlan | str, mode: str = 'TEST',
               + (post == Denoise.BILATERAL))
     if (stages and s.denoise in (Denoise.NONE, Denoise.BILATERAL)
             and post in (Denoise.NONE, Denoise.BILATERAL)):
-        return _bilateral_pipeline(s, stages)
-    return _generic_pipeline(plan)
+        return _bilateral_pipeline(s, stages, fast)
+    return _generic_pipeline(plan, fast)

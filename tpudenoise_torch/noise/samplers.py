@@ -1,6 +1,7 @@
-"""Fixed-round Poisson and gamma samplers on threefry draws (counterpart of
-`tpudenoise/noise/fast_samplers.py`: `poisson_fixed`, `gamma_fixed` and
-`stirling_lgamma`, threefry mode).
+"""Fixed-round Poisson and gamma samplers (counterpart of
+`tpudenoise/noise/fast_samplers.py`: `poisson_fixed`, `gamma_fixed`,
+`stirling_lgamma` and the counter-hash stream `_hash_words`, `_u01` and
+`_normal`).
 
 * `poisson_fixed`: CDF inversion (33 steps) for lam < 10, Hoermann's PTRS
   transformed rejection (4 fixed rounds, Stirling lgamma) above, and a
@@ -15,6 +16,13 @@ fields are drawn on the fields' device (`prng.draw_uniform` /
 poisson splits its key in three (inversion uniform, PTRS key, fallback
 normal) and PTRS round r draws (u, v) from split(fold_in(key, r)); gamma
 round r draws (x, u) from split(fold_in(key, r)).
+
+`fast_bits=True` (`--fast-rng`) draws from the counter hash instead
+(`prng.draw_hash`, the hash-stream kernel on a GPU), salts as the
+reference's registry: poisson's inversion uniform 1, fallback normal 8
+(and 9), PTRS round r one word of salt 16 + r (u in its high 16 bits, v
+in its low 16); gamma round r a normal of salt 32 + 3r (and 33 + 3r) and
+a uniform of 34 + 3r.
 
 Where XLA's CPU code contracts a multiply feeding an add into one FMA,
 the arithmetic here rounds once too (`prng._fma_t`, through float64); the
@@ -40,6 +48,21 @@ def _c(x: float) -> float:
     """A Python double rounded to f32, as the reference's weak-typed
     constants are."""
     return float(_F32(x))
+
+
+def _hash_words(keys, n: int, salt: int, device) -> torch.Tensor:
+    """(B, n) int32 words of the counter hash, one seed per key."""
+    return prng.draw_hash(keys, n, salt, 'bits', device)
+
+
+def _u01(keys, n: int, salt: int, device) -> torch.Tensor:
+    """(B, n) f32 uniforms in (0, 1) of the counter hash."""
+    return prng.draw_hash(keys, n, salt, 'u01', device)
+
+
+def _normal(keys, n: int, salt: int, device) -> torch.Tensor:
+    """(B, n) Box-Muller normals of the hash's salts salt and salt + 1."""
+    return prng.draw_hash(keys, n, salt, 'normal', device)
 
 
 def stirling_lgamma(z: torch.Tensor) -> torch.Tensor:
@@ -70,24 +93,36 @@ def _poisson_inv_cdf(u: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return k
 
 
-def _poisson_ptrs(key_ptrs, lam: torch.Tensor):
+def _ptrs_draws(key_ptrs, lam: torch.Tensor, fast_bits: bool):
+    """Round r's (u, v) of PTRS: (u - 0.5, v) from split(fold_in(key,
+    r)), all rounds in one threefry draw, or with fast_bits one hash word
+    of salt 16 + r, u from its high 16 bits and v from its low 16."""
+    n = lam.shape[1]
+    if fast_bits:
+        for r in range(_PTRS_ROUNDS):
+            w = _hash_words(key_ptrs, n, 16 + r, lam.device)
+            u = (((w >> 16) & 0xFFFF).to(torch.float32) + 0.5) * 2.0 ** -16
+            v = ((w & 0xFFFF).to(torch.float32) + 0.5) * 2.0 ** -16
+            yield u - 0.5, v
+        return
+    rk = prng.split(prng.fold_in(key_ptrs[:, None],
+                                 np.arange(_PTRS_ROUNDS)[None]))
+    draws = prng.draw_uniform(rk, n, lam.device)     # (B, R, 2, N)
+    for r in range(_PTRS_ROUNDS):
+        yield draws[:, r, 0] - 0.5, draws[:, r, 1]
+
+
+def _poisson_ptrs(key_ptrs, lam: torch.Tensor, fast_bits: bool = False):
     """PTRS, _PTRS_ROUNDS fixed rounds over (B, N) lam >= 10; returns
     (k, ok)."""
-    n = lam.shape[1]
     b = _fma_t(torch.sqrt(lam), _c(2.53), _c(0.931))
     a = _fma_t(b, _c(0.02483), _c(-0.059))
     inv_alpha = _c(1.1239) + _c(1.1328) / (b - _c(3.4))
     v_r = _c(0.9277) - _c(3.6224) / (b - 2.0)
     log_lam = torch.log(lam)
-    # round r: (ku, kv) = split(fold_in(key, r)), all rounds in one draw
-    rk = prng.split(prng.fold_in(key_ptrs[:, None],
-                                 np.arange(_PTRS_ROUNDS)[None]))
-    draws = prng.draw_uniform(rk, n, lam.device)     # (B, R, 2, N)
     k = torch.zeros_like(lam)
     ok = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
-    for r in range(_PTRS_ROUNDS):
-        u = draws[:, r, 0] - 0.5
-        v = draws[:, r, 1]
+    for u, v in _ptrs_draws(key_ptrs, lam, fast_bits):
         us = 0.5 - u.abs()
         cand = torch.floor(_fma_t((2.0 * a) / us + b, u, lam) + _c(0.43))
         accept = (us >= _c(0.07)) & (v <= v_r)
@@ -100,23 +135,31 @@ def _poisson_ptrs(key_ptrs, lam: torch.Tensor):
     return k, ok
 
 
-def poisson_fixed(keys, lam: torch.Tensor) -> torch.Tensor:
+def poisson_fixed(keys, lam: torch.Tensor,
+                  fast_bits: bool = False) -> torch.Tensor:
     """Poisson(lam) counts as float32: keys (B, 2), lam (B, N) >= 0."""
     n = lam.shape[1]
-    k_inv, k_ptrs, k_norm = np.moveaxis(prng.split(keys, 3), -2, 0)
-    u = prng.draw_uniform(k_inv, n, lam.device)
-    z = prng.draw_normal(k_norm, n, lam.device)
+    if fast_bits:
+        keys = np.asarray(keys)
+        u = _u01(keys, n, 1, lam.device)
+        z = _normal(keys, n, 8, lam.device)
+        k_ptrs = keys
+    else:
+        k_inv, k_ptrs, k_norm = np.moveaxis(prng.split(keys, 3), -2, 0)
+        u = prng.draw_uniform(k_inv, n, lam.device)
+        z = prng.draw_normal(k_norm, n, lam.device)
     small = lam < _SPLIT
     k_small = _poisson_inv_cdf(u, torch.clamp(lam, max=_SPLIT))
     lam_big = torch.clamp(lam, min=_SPLIT)
-    k_big, ok = _poisson_ptrs(k_ptrs, lam_big)
+    k_big, ok = _poisson_ptrs(k_ptrs, lam_big, fast_bits)
     fallback = torch.clamp(torch.round(_fma_t(torch.sqrt(lam), z, lam)),
                            min=0.0)
     k_big = torch.where(ok, k_big, fallback)
     return torch.where(small, k_small, k_big)
 
 
-def gamma_fixed(keys, a: float, n: int, device) -> torch.Tensor:
+def gamma_fixed(keys, a: float, n: int, device,
+                fast_bits: bool = False) -> torch.Tensor:
     """Gamma(a, 1) draws, (B, n) float32, for a static shape a > 1,
     _GAMMA_ROUNDS fixed rounds."""
     if not a > 1.0:
@@ -124,22 +167,11 @@ def gamma_fixed(keys, a: float, n: int, device) -> torch.Tensor:
     d = _F32(a - 1.0 / 3.0)
     c = float(_F32(1.0) / np.sqrt(_F32(9.0) * d))
     d = float(d)
-    # round r: (kx, ku) = split(fold_in(key, r)): (B, R, 2, 2)
-    rk = prng.split(prng.fold_in(np.asarray(keys)[:, None],
-                                 np.arange(_GAMMA_ROUNDS)[None]))
-    # XLA folds x's sqrt(2) into c: t = fma(erf_inv, c * sqrt(2), 1)
-    e_all = prng.draw_erf_inv(rk[:, :, 0], n, device)
-    u_all = prng.draw_uniform(rk[:, :, 1], n, device,
-                              np.finfo(np.float32).tiny, 1.0)
-    shape = e_all.shape[:1] + e_all.shape[2:]
-    c_s2 = float(np.float32(c) * prng._SQRT2)
+    shape = (np.asarray(keys).shape[0], n)
     out = torch.zeros(shape, dtype=torch.float32, device=device)
     last = torch.full(shape, d, dtype=torch.float32, device=device)
     ok = torch.zeros(shape, dtype=torch.bool, device=device)
-    for r in range(_GAMMA_ROUNDS):
-        e, u = e_all[:, r], u_all[:, r]
-        x = e * float(prng._SQRT2)
-        t = _fma_t(e, c_s2, 1.0)
+    for x, t, u in _gamma_draws(keys, c, n, device, fast_bits):
         v = t * (t * t)
         pos = v > 0.0
         vs = torch.where(pos, v, 1.0)
@@ -150,3 +182,26 @@ def gamma_fixed(keys, a: float, n: int, device) -> torch.Tensor:
         ok = ok | accept
         last = torch.where(pos, cand, last)
     return torch.where(ok, out, last)
+
+
+def _gamma_draws(keys, c: float, n: int, device, fast_bits: bool):
+    """Round r's normal x, t = 1 + c * x (one rounding) and uniform u:
+    (x, u) from split(fold_in(key, r)), or with fast_bits x of the hash's
+    salt 32 + 3r and u of 34 + 3r."""
+    if fast_bits:
+        keys = np.asarray(keys)
+        for r in range(_GAMMA_ROUNDS):
+            x = _normal(keys, n, 32 + 3 * r, device)
+            yield x, _fma_t(x, c, 1.0), _u01(keys, n, 34 + 3 * r, device)
+        return
+    # round r: (kx, ku) = split(fold_in(key, r)): (B, R, 2, 2)
+    rk = prng.split(prng.fold_in(np.asarray(keys)[:, None],
+                                 np.arange(_GAMMA_ROUNDS)[None]))
+    # XLA folds x's sqrt(2) into c: t = fma(erf_inv, c * sqrt(2), 1)
+    e_all = prng.draw_erf_inv(rk[:, :, 0], n, device)
+    u_all = prng.draw_uniform(rk[:, :, 1], n, device,
+                              np.finfo(np.float32).tiny, 1.0)
+    c_s2 = float(np.float32(c) * prng._SQRT2)
+    for r in range(_GAMMA_ROUNDS):
+        e = e_all[:, r]
+        yield e * float(prng._SQRT2), _fma_t(e, c_s2, 1.0), u_all[:, r]

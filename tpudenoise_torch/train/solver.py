@@ -4,7 +4,8 @@ step, summaries and snapshots.
 
 The key algebra is the JAX solver's, on the host keys of `core.prng`:
 the key starts at PRNGKey(RNG_SEED) and each iteration splits it into
-(key, k_noise, k_step).  A batch that fills the bucket takes the noise
+(key, k_noise, k_step).  `fast_rng` builds the noise pipeline with the
+counter-hash draws.  A batch that fills the bucket takes the noise
 pipeline's `fn(k_noise, images)`; a batch with padded images (hw below
 the bucket) takes `fn.masked(fold_in(k_noise, i) per image, images, hw)`
 and its pad is zeroed after the mean subtraction, as the reference's blob
@@ -60,7 +61,8 @@ class Solver:
     def __init__(self, model, imdb_obj, roidb, valroidb, output_dir,
                  tb_dir, noise: str = 'original', config=None,
                  batch_size: int = 1, bucket=None, max_gt: int = 100,
-                 prefetch: bool = False, device='cuda'):
+                 prefetch: bool = False, device='cuda',
+                 fast_rng: bool = False):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('the solver runs on a CUDA GPU unless given '
@@ -91,7 +93,7 @@ class Solver:
         os.makedirs(output_dir, exist_ok=True)
         self.logger = MetricsLogger(logdir=tb_dir, tb_dir=tb_dir)
         self._noise_fn = make_pipeline(parse_noise(noise, mode='TRAIN'),
-                                       mode='TRAIN')
+                                       mode='TRAIN', fast_rng=fast_rng)
         print(f'noise pipeline backend: {self._noise_fn.backend}')
         production_mesh(batch_size, self.device)
         self._init_state_fn, self._step_fn = make_train_step(model,
@@ -299,7 +301,7 @@ def train_net(model, imdb_obj, roidb, valroidb, output_dir, tb_dir,
               pretrained_params=None, max_iters: int = 40000,
               noise: str = 'original', config=None, batch_size: int = 1,
               bucket=None, prefetch: bool = False,
-              device='cuda') -> TrainState:
+              device='cuda', fast_rng: bool = False) -> TrainState:
     """Filter the roidbs, build the solver (with a pretrained tree merged
     over the seeded init: `models.convert.merge_pretrained`) and train."""
     from tpudenoise_torch.data.roidb import filter_roidb
@@ -308,7 +310,7 @@ def train_net(model, imdb_obj, roidb, valroidb, output_dir, tb_dir,
     solver = Solver(model, imdb_obj, roidb, valroidb, output_dir, tb_dir,
                     noise=noise, config=config, batch_size=batch_size,
                     bucket=bucket, prefetch=prefetch,
-                    device=device)
+                    device=device, fast_rng=fast_rng)
     if pretrained_params is not None:
         from tpudenoise_torch.models.convert import merge_pretrained
         init = solver._init_state_fn
