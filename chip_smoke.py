@@ -177,11 +177,38 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      head: the seeded conv3 is zero) over the CLI phase's 16 images, its
      loop timed against the same command without the probes, every
      logged TwoNN ID finite and positive;
+  5f. the last backbone and the last offline tools (after 5c, before
+     5d: 5d's profiler sessions are the process's first, and after a
+     session a run of unprofiled work as long as 5f's left
+     torch.profiler dropping kernel records in phase 6's reads): a
+     seeded mobile (bf16, DEPTH_MULTIPLIER
+     1.0, all 14 layers) on the main path, batch 8, raw 600x1000, bucket
+     608x1024, for sap_median_var0.4 (kernel 1) and
+     gaussian_gaus_blur_var0.1 (kernel 2), 3 warm and 5 timed chunks each
+     (img/s median, min and max; noise and forward ms by CUDA events),
+     every launch (kernel 3 and the walk twice a chunk) held to its plain
+     version; the head's time on the bucket split into the depthwise,
+     pointwise and full convs and BN + ReLU6; one small chunk (f32, BN
+     randomized) card against CPU in two parts: the forward outputs
+     within stated bounds, and the CPU postprocess of the card's forward
+     keeping the card's detections (phase 4's twin share logged); one
+     `cli.trainval --net mobile` step on the training phase's images
+     (finite losses, the frozen parameters bit-equal after it, others
+     moved, every launch held to its plain version), then the bf16 step
+     timed by CUDA events; `cli.test --net mobile --compute-id` over the
+     CLI phase's 16 images (every TwoNN ID finite and positive);
+     `cli.convert` on a torchvision-layout res101 `.pth` of seeded random
+     tensors, then `cli.test --model` on the `.npz` printing `Loaded
+     n/N`; the Automold suite: `augment_random` with each name of
+     AUG_TYPES forced on 8 images of 600x1000 (ms per image), each
+     `add_sun_flare` launch of kernel 8 held to its plain version, and
+     every name on two 120x160 images card against CPU;
   6. where the time goes: one chunk of each string under torch.profiler,
      the device's activity only (device kernel time, idle share, the
      port's own kernels' share, split by kernel name with their launches:
-     the threefry draws' device time a chunk gets a line of its own), and of the res101 sap chunk; then
-     `cli.demo` again under --profile (sheet, trace file and launches as
+     the threefry draws' device time a chunk gets a line of its own), and
+     of the res101 sap chunk and the mobile chunks; then `cli.demo` again
+     under --profile (sheet, trace file and launches as
      without it; the profiler's start, the profiled block and the trace
      export timed apart); then two training steps under torch.profiler
      (the step's idle share); then each kernel's device time on phase
@@ -977,17 +1004,27 @@ def _dets(boxes, scores, mask, i, c):
 def check_small_chunk(dev):
     """The chunk on the card (f32) against the same chunk on the CPU:
     vgg16 for every small string, res50 for sap."""
+    cases = []
+    for backbone, noises in (('vgg16', SMALL_NOISES),
+                             ('res50', ('sap_median_var0.4',))):
+        model = FasterRCNN(backbone, num_classes=21, cfg=default_config(),
+                           dtype=torch.float32)
+        cases.append((backbone, model, seeded(model), noises))
+    small_chunks(dev, cases)
+
+
+def small_chunks(dev, cases):
+    """Each case (tag, model, params, noises): two 120x200 images through
+    detect_chunk on the CPU and on the card; >= 95% of the CPU's
+    detections must have a card twin within 0.5 px (phase 4's
+    tolerance)."""
     rng = np.random.RandomState(4)
     raw = torch.from_numpy(rng.randint(0, 256, (2, 120, 200, 3)).astype(
         np.uint8))
     geom = torch.tensor([[120, 200, 120, 200, 1.0]] * 2)
     bucket = (128, 224)
     res = {}
-    for backbone, noises in (('vgg16', SMALL_NOISES),
-                             ('res50', ('sap_median_var0.4',))):
-        model = FasterRCNN(backbone, num_classes=21, cfg=default_config(),
-                           dtype=torch.float32)
-        params = seeded(model)
+    for backbone, model, params, noises in cases:
         for d in ('cpu', dev):
             model.to(d)
             p = {k: v.to(d) for k, v in params.items()}
@@ -1158,6 +1195,7 @@ def main_path(inputs, card: str, noises, tag: str = '',
         name = tag + noise + (' --fast-rng' if fast else '')
         result[name] = dict(
             img_per_s=B / med, img_per_s_mean=B * len(walls) / sum(walls),
+            img_per_s_range=(B / max(walls), B / min(walls)),
             chunk_ms=med * 1e3,
             stage_ms={s: statistics.median(v) for s, v in per_stage.items()},
             kept_per_image=float(kept.sum() / B),
@@ -1168,7 +1206,8 @@ def main_path(inputs, card: str, noises, tag: str = '',
         r = result[name]
         log(f'main path {name}: {B / med:.1f} img/s (median of 5 chunks, '
             f'{med * 1e3:.2f} ms/chunk of {B}; mean '
-            f'{r["img_per_s_mean"]:.1f} img/s); stages ms: '
+            f'{r["img_per_s_mean"]:.1f}, min {B / max(walls):.1f}, max '
+            f'{B / min(walls):.1f} img/s); stages ms: '
             + ', '.join(f'{s} {v:.2f}' for s, v in r['stage_ms'].items())
             + f'; {kept.sum() / B:.1f} kept/image, {final / B:.1f} after '
             f'the cap of 100; launches '
@@ -1731,7 +1770,7 @@ TRAIN_TIMED = 5
 # threefry draws a step: the anchor targets' two uniform fields, the
 # proposal targets' two uniform fields and two randints of two bit fields
 # each, and each vgg16 dropout's field
-TRAIN_DRAWS = {'res101': 8, 'vgg16': 10}
+TRAIN_DRAWS = {'res101': 8, 'vgg16': 10, 'mobile': 8}
 # the kernels a training step launches for its noise string, a step
 TRAIN_NOISE_LAUNCHES = {
     TRAIN_NOISE: {'fused_sap_median_batched': 1},
@@ -1952,9 +1991,10 @@ def check_resume(first, second, restored, cfg, path: str) -> dict:
     return dict(restored_equal=True, sequence_equal=len(seen))
 
 
-def train_setup(cfg, dtype, dev, name: str, init=None):
-    """A res101 solver of the training phase's data on dev, its loader
-    and its state (the seeded init, or `init` moved to dev)."""
+def train_setup(cfg, dtype, dev, name: str, init=None, net='res101'):
+    """A solver of net (res101 by default) on the training phase's data
+    on dev, its loader and its state (the seeded init, or `init` moved
+    to dev)."""
     from tpudenoise_torch.data.loader import RoiDataLoader
     from tpudenoise_torch.data.roidb import combined_roidb, filter_roidb
     from tpudenoise_torch.train.solver import Solver
@@ -1962,7 +2002,7 @@ def train_setup(cfg, dtype, dev, name: str, init=None):
     roidb = filter_roidb(roidb, cfg)
     out = os.path.join(default_config().ROOT_DIR, 'build',
                        'chip_smoke_train', name)
-    s = Solver(FasterRCNN('res101', num_classes=2, cfg=cfg, dtype=dtype),
+    s = Solver(FasterRCNN(net, num_classes=2, cfg=cfg, dtype=dtype),
                imdb, roidb, [], out, out + '_tb', noise=TRAIN_NOISE,
                config=cfg, device=dev)
     init = init or s._init_state_fn(torch.Generator().manual_seed(
@@ -3176,6 +3216,456 @@ def slice15_phase(card: str, res, cli: dict) -> dict:
     return out
 
 
+# ------------------------------------------------ slice 16: phase 5f --
+
+# the mobile chunks' noise strings (kernels 1 and 2)
+MOBILE_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1')
+# the Automold images: AUTOMOLD_B of the main path's size, and the
+# card-against-CPU pair; bounds as tests/test_torch_automold.py's
+AUTOMOLD_B = 8
+AUTOMOLD_SMALL = (2, 120, 160, 3)
+AUTOMOLD_FAR, AUTOMOLD_NEAR = 1e-3, 1e-2
+
+
+def randomize_bn(params: dict, seed: int) -> dict:
+    """params with every BN statistic drawn at random (gamma and var in
+    [0.5, 1.5], beta and mean N(0, 0.1)), in place: a seeded backbone's
+    BN is the identity, and mobile's ReLU6 would then clamp most of what
+    the card and the CPU differ in."""
+    rng = np.random.RandomState(seed)
+    for name, p in params.items():
+        leaf = name.rsplit('.', 1)[-1]
+        if leaf in ('gamma', 'var'):
+            p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
+        elif leaf in ('beta', 'mean'):
+            p.copy_(torch.from_numpy(rng.randn(*p.shape) * 0.1))
+    return params
+
+
+def mobile_head_times(mob, card: str) -> dict:
+    """The mobile head on the chunk's bucket (8, 3, 608, 1024) bf16 in
+    channels-last memory, by CUDA events (2 warm, 5 timed): the whole
+    head, and each layer's convs (the full conv, the depthwise 3x3 and
+    the pointwise 1x1) and BN + ReLU6 apart, on that layer's input."""
+    from tpudenoise_torch.models.backbones.mobilenet import relu6
+    from tpudenoise_torch.models.rpn import conv
+    model = mob[0]
+    head = model.head
+    x = torch.zeros(B, *BUCKET, 3, device=DEV).normal_().mul_(50).permute(
+        0, 3, 1, 2)
+
+    def ms(fn, *a):
+        return time_ms(lambda: fn(*a), 5)
+
+    parts = {'depthwise': 0.0, 'pointwise': 0.0, 'full conv': 0.0,
+             'bn + relu6': 0.0}
+    with torch.no_grad():
+        whole = ms(head, x)
+        h = x.to(head.dtype)
+        for layer in head.children():
+            if hasattr(layer, 'depthwise'):
+                d = conv(h, layer.depthwise, head.dtype, layer.stride)
+                parts['depthwise'] += ms(conv, h, layer.depthwise,
+                                         head.dtype, layer.stride)
+                a = relu6(layer.dw_bn(d))
+                parts['bn + relu6'] += ms(lambda t: relu6(layer.dw_bn(t)), d)
+                p = conv(a, layer.pointwise, head.dtype)
+                parts['pointwise'] += ms(conv, a, layer.pointwise,
+                                         head.dtype)
+                parts['bn + relu6'] += ms(lambda t: relu6(layer.pw_bn(t)), p)
+                h = relu6(layer.pw_bn(p))
+            else:
+                c = conv(h, layer.conv, head.dtype, layer.stride)
+                parts['full conv'] += ms(conv, h, layer.conv, head.dtype,
+                                         layer.stride)
+                parts['bn + relu6'] += ms(lambda t: relu6(layer.bn(t)), c)
+                h = relu6(layer.bn(c))
+    log(f'mobile head on ({B}, 3, {BUCKET[0]}, {BUCKET[1]}) bf16: '
+        f'{whole:.2f} ms by CUDA events; layer by layer (ms, summed over '
+        f'the 12 layers): ' + ', '.join(f'{k} {v:.2f}'
+                                         for k, v in parts.items())
+        + f'  [{card}]')
+    return dict(head_ms=whole, parts_ms=parts)
+
+
+def mobile_paths(card: str, mob) -> dict:
+    """The seeded mobile (bf16, DEPTH_MULTIPLIER 1.0, all 14 layers) on
+    the main path: MOBILE_NOISES' chunks as main_path times them, every
+    launch held to its plain version; the head's time split; one small
+    chunk (f32, BN randomized) card against CPU."""
+    with taped() as calls:
+        out = main_path(mob, card, MOBILE_NOISES, 'mobile ')
+    held = hold_to_plain(calls, 'mobile chunks', card)
+    del calls
+    out['mobile head'] = mobile_head_times(mob, card)
+    out['mobile head']['launches'] = {}
+    out['mobile chunks held'] = dict(held=held, launches={})
+    out['mobile small chunk'] = mobile_small_chunk(card)
+    return out
+
+
+# the mobile small chunk, card (f32) against CPU: its forward outputs
+# (bbox_pred within two bf16 ulps of its largest: the heads run in bf16)
+MOBILE_ROI_PX, MOBILE_PROB_TOL, MOBILE_DELTA_TOL = 0.1, 1e-3, 2.0 ** -7
+
+
+def mobile_small_chunk(card: str) -> dict:
+    """small_chunks' inputs (two 120x200 frames, sap) through a seeded
+    f32 mobile with its BN randomized, on the CPU and on the card, held
+    in two parts.  The forward: the same roi_mask, each CPU roi with a
+    card twin within MOBILE_ROI_PX, cls_prob within MOBILE_PROB_TOL (the
+    class heads run in bf16) and bbox_pred within MOBILE_DELTA_TOL of
+    its largest magnitude.  The postprocess: run on the CPU over the
+    card's forward outputs, the same kept detections and scores as the
+    card's, boxes within 1e-3 px.  Phase 4's detection-twin share is
+    logged, not held: on these frames the seeded mobile scores its 300
+    rois per class within ~0.01, so nearly every gap between two sorted
+    class scores is below the card-CPU difference of the bf16 heads,
+    and the per-class NMS then keeps another member of a cluster of
+    near-equal boxes (the forward and the postprocess agree; the order
+    of near-ties does not)."""
+    from tpudenoise_torch.eval import harness
+    model = FasterRCNN('mobile', num_classes=21, cfg=default_config(),
+                       dtype=torch.float32)
+    params = randomize_bn(seeded(model), 16)
+    rng = np.random.RandomState(4)
+    raw = torch.from_numpy(rng.randint(0, 256, (2, 120, 200, 3)).astype(
+        np.uint8))
+    geom = torch.tensor([[120, 200, 120, 200, 1.0]] * 2)
+    fwd, det = {}, {}
+    for d in ('cpu', DEV):
+        model.to(d)
+        p = {k: v.to(d) for k, v in params.items()}
+
+        def forward(fn, d=d):
+            def call(*a):
+                out = fn(*a)
+                fwd[d] = {k: v.cpu() for k, v in out.items()}
+                return out
+            return call
+
+        with patched(model, 'forward_test', forward):
+            det[d] = [t.cpu() for t in detect_chunk(
+                model, p, prng.PRNGKey(3), [0, 1], raw.to(d),
+                [(geom.to(d), (128, 224))], make_pipeline(
+                    'sap_median_var0.4'))]
+    c, g = fwd['cpu'], fwd[DEV]
+    roi_px = max((a[:, None] - b[None]).abs().amax(-1).amin(1).max().item()
+                 for a, b in zip(c['rois'], g['rois']))
+    prob = (c['cls_prob'] - g['cls_prob']).abs().max().item()
+    delta = ((c['bbox_pred'] - g['bbox_pred']).abs().max()
+             / c['bbox_pred'].abs().max()).item()
+    if (not torch.equal(c['roi_mask'], g['roi_mask'])
+            or roi_px > MOBILE_ROI_PX or prob > MOBILE_PROB_TOL
+            or delta > MOBILE_DELTA_TOL):
+        raise AssertionError(f'mobile small chunk forward: rois {roi_px} '
+                             f'px, cls_prob {prob}, bbox_pred {delta}')
+    post = harness.postprocess_detections_pyramid(
+        g['rois'][:, None], g['roi_mask'][:, None], g['cls_prob'][:, None],
+        g['bbox_pred'][:, None], geom[:, None, 2:], model.num_classes,
+        model.cfg.TEST.NMS, 0.0, max_per_class=100)
+    (pb, ps, pm), (gb, gs, gm) = post, det[DEV]
+    if not (torch.equal(pm, gm) and torch.equal(ps, gs)
+            and (pb - gb).abs().max() <= 1e-3):
+        raise AssertionError('mobile small chunk: the CPU postprocess of the '
+                             'card forward keeps other detections')
+    sc = c['cls_prob'][..., 1:].sort(1).values
+    below = ((sc[:, 1:] - sc[:, :-1]) < prob).double().mean().item()
+    (cb, cs_, cm) = (t.numpy() for t in det['cpu'])
+    (gb_, gs_, gm_) = (t.numpy() for t in det[DEV])
+    matched = total = 0
+    for i in range(2):
+        for k in range(cb.shape[1]):
+            a, b = _dets(cb, cs_, cm, i, k), _dets(gb_, gs_, gm_, i, k)
+            for row in a:
+                total += 1
+                matched += bool(b.size and np.abs(b - row).max(1).min() < 0.5)
+    log(f'small chunk mobile sap_median_var0.4 (f32, BN randomized): forward '
+        f'card vs CPU rois {roi_px:.2e} px, cls_prob {prob:.2e}, bbox_pred '
+        f'{delta:.2e} of its largest; the CPU postprocess of the card '
+        f'forward keeps the card\'s detections; {matched}/{total} CPU '
+        f'detections with a card twin within 0.5 px ({below:.1%} of the '
+        f'gaps between sorted class scores below the cls_prob difference)'
+        f'  [{card}]')
+    return dict(roi_px=roi_px, cls_prob=prob, bbox_pred=delta,
+                twins=(matched, total), gaps_below=below, launches={})
+
+
+def mobile_train(card: str) -> dict:
+    """One cli.trainval --net mobile step on the training phase's images
+    (kernel 1, the targets' threefry draws, kernel 3 and the walk, each
+    launch held to its plain version): finite losses; every parameter
+    that frozen_param_filter freezes (the head's first FIXED_LAYERS
+    layers) bit-equal after the step, the other head layers, the RPN,
+    the tail (its BN too) and the class heads moved."""
+    import os.path as osp
+
+    from tpudenoise_torch.train import solver as solver_mod
+    repo = default_config().ROOT_DIR
+    inp = dict(repo=repo, root=osp.join(repo, 'build', 'chip_smoke_train'))
+    inits = []
+
+    def spy(make):
+        def call(model, cfg):
+            init, step = make(model, cfg)
+
+            def init_state(*a):
+                st = init(*a)
+                inits.append((model, {k: v.clone()
+                                      for k, v in st.params.items()}))
+                return st
+            return init_state, step
+        return call
+
+    with patched(solver_mod, 'make_train_step', spy):
+        e, state, _, _, cfg, _ = train_cli(card, inp, 'mobile', TRAIN_NOISE,
+                                           1, 'mobile')
+    (model, before), = inits
+    frozen = [n for n, _ in model.named_parameters() if model.frozen(n)]
+    moved = [n for n, _ in model.named_parameters() if not model.frozen(n)
+             and not torch.equal(state.params[n].cpu(), before[n].cpu())]
+    kept = [n for n in frozen
+            if torch.equal(state.params[n].cpu(), before[n].cpu())]
+    if kept != frozen or not frozen:
+        raise AssertionError(f'mobile step: frozen parameters changed: '
+                             f'{sorted(set(frozen) - set(kept))[:5]}')
+    for part in ('head.layer_5.', 'rpn.', 'tail.layer_13.pw_bn.', 'rcnn.'):
+        if not any(n.startswith(part) for n in moved):
+            raise AssertionError(f'mobile step: nothing in {part} moved')
+    e.update(frozen=len(frozen), moved=len(moved))
+    # the step's time: the solver of that run's config, 2 warm steps,
+    # then TRAIN_TIMED by CUDA events (noise and the step)
+    s, loader, st, _ = train_setup(cfg, torch.bfloat16, DEV, 'mobile_timed',
+                                   net='mobile')
+    key, evs = prng.PRNGKey(cfg.RNG_SEED), []
+    for it in range(2 + TRAIN_TIMED):
+        key, kn, ks = prng.split(key, 3)
+        raw = loader.forward()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        st, _ = s._step_fn(st, ks, s._prep_batch(kn, raw))
+        ev[1].record()
+        if it >= 2:
+            evs.append(ev)
+    torch.cuda.synchronize()
+    e['step_ms'] = statistics.median(a.elapsed_time(b) for a, b in evs)
+    log(f'train mobile {TRAIN_NOISE}: {len(frozen)} frozen parameters '
+        f'bit-equal after the step, {len(moved)} of the others moved; the '
+        f'bf16 step at {s.bucket[0]}x{s.bucket[1]}, batch 1: median '
+        f'{e["step_ms"]:.2f} ms of {TRAIN_TIMED} by CUDA events  [{card}]')
+    return {f'train mobile {TRAIN_NOISE}': e}
+
+
+def mobile_compute_id(card: str, inp: dict) -> dict:
+    """cli.test --net mobile --compute-id over the CLI phase's 16 images,
+    the seeded mobile of rrData's two classes with its BN randomized
+    (mobile.yml, --eval-batch 8): kernel 1 once and kernel 3 and the
+    walk twice a chunk, every launch held to its plain version; every
+    logged TwoNN ID finite and positive."""
+    import os.path as osp
+
+    from tpudenoise_torch.analysis.twonn import PROBES
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.eval import harness
+    from tpudenoise_torch.models.convert import save_params_npz
+    root = inp['root']
+    npz = osp.join(root, 'mobile_probes.npz')
+    save_params_npz(randomize_bn(seeded(FasterRCNN('mobile', num_classes=2)),
+                                 17), npz)
+    logged = {}
+
+    class Tee:
+        active_sinks = False
+
+        def log(self, metrics, step=None):
+            logged.update(metrics)
+
+    argv = ['--net', 'mobile', '--compute-id', '--cfg', osp.join(
+        inp['repo'], 'experiments', 'cfgs', 'mobile.yml'),
+        '--imdb', 'rrData_2021_test', '--noise', LOOP_NOISE,
+        '--eval-batch', str(B), '--model', npz,
+        '--set', 'DATA_DIR', root, 'ROOT_DIR', root]
+    with taped() as calls, patched(harness, 'get_metrics_logger',
+                                   lambda fn: Tee):
+        aps, wall, counts, _ = run_cli(cli_test.main, argv)
+    held = hold_to_plain(calls, 'cli.test --net mobile --compute-id', card)
+    del calls
+    if len(aps) != 10 or not all(np.isfinite(a) for a in aps):
+        raise AssertionError(f'cli.test --net mobile: APs {aps}')
+    chunks = CLI_IMAGES // B
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    if launches != {'fused_sap_median_batched': chunks, MASKS: 2 * chunks,
+                    WALK: 2 * chunks}:
+        raise AssertionError(f'cli.test --net mobile: launches {launches}')
+    ids = {p: logged.get(f'twonn_id/{p}') for p in PROBES['mobile']
+           + ['head']}
+    if not all(v is not None and np.isfinite(v) and v > 0
+               for v in ids.values()):
+        raise AssertionError(f'--net mobile --compute-id: IDs {ids}')
+    log(f'cli.test --net mobile --compute-id over {CLI_IMAGES} images: '
+        f'{wall:.2f} s; IDs ' + ', '.join(f'{k} {v:.2f}'
+                                          for k, v in ids.items())
+        + f'; launches {json.dumps(launches)}  [{card}]')
+    return {'cli.test --net mobile --compute-id': dict(
+        wall_s=wall, twonn_id=ids, launches=launches, held=held)}
+
+
+def torchvision_resnet(num_layers: int, seed: int) -> dict:
+    """A torchvision-layout resnet state dict of seeded random tensors
+    (He-scaled convs, BN near the identity, the fc head), as a `.pth` of
+    torchvision's holds them: nothing is fetched."""
+    from tpudenoise_torch.models.convert import UNITS
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        std = np.sqrt(2.0 / (cin * k * k))
+        sd[name] = torch.from_numpy(
+            (rng.randn(cout, cin, k, k) * std).astype(np.float32))
+
+    def bn(name, c):
+        for leaf, lo, hi in (('weight', 0.5, 1.0), ('bias', -0.1, 0.1),
+                             ('running_mean', -0.1, 0.1),
+                             ('running_var', 0.5, 1.5)):
+            sd[f'{name}.{leaf}'] = torch.from_numpy(
+                rng.uniform(lo, hi, c).astype(np.float32))
+        sd[f'{name}.num_batches_tracked'] = torch.tensor(0)
+
+    conv('conv1.weight', 64, 3, 7)
+    bn('bn1', 64)
+    cin = 64
+    for b, units in enumerate(UNITS[num_layers], start=1):
+        w = 64 * 2 ** (b - 1)
+        for u in range(units):
+            base = f'layer{b}.{u}'
+            conv(base + '.conv1.weight', w, cin, 1)
+            bn(base + '.bn1', w)
+            conv(base + '.conv2.weight', w, w, 3)
+            bn(base + '.bn2', w)
+            conv(base + '.conv3.weight', 4 * w, w, 1)
+            bn(base + '.bn3', 4 * w)
+            if u == 0:
+                conv(base + '.downsample.0.weight', 4 * w, cin, 1)
+                bn(base + '.downsample.1', 4 * w)
+            cin = 4 * w
+    sd['fc.weight'] = torch.from_numpy(
+        (rng.randn(1000, cin) * 0.01).astype(np.float32))
+    sd['fc.bias'] = torch.zeros(1000)
+    return sd
+
+
+def convert_cli(card: str, inp: dict) -> dict:
+    """`cli.convert` on a torchvision-layout res101 `.pth` written here
+    (`torchvision_resnet`), then `cli.test --net res101 --model` on the
+    `.npz` over the CLI phase's images: it prints `Loaded n/N` with n the
+    `.npz`'s entries, finite APs, every launch held to its plain
+    version."""
+    import io
+    import os.path as osp
+
+    from tpudenoise_torch.cli import convert as cli_convert
+    from tpudenoise_torch.cli import test as cli_test
+    root = inp['root']
+    pth, npz = osp.join(root, 'resnet101.pth'), osp.join(root, 'tv101.npz')
+    torch.save(torchvision_resnet(101, 19), pth)
+    t0 = time.perf_counter()
+    cli_convert.main(['--src', pth, '--net', 'res101', '--out', npz])
+    t_convert = time.perf_counter() - t0
+    with np.load(npz) as f:
+        entries = len(f.files)
+    argv = ['--net', 'res101', '--cfg', osp.join(
+        inp['repo'], 'experiments', 'cfgs', 'res101.yml'),
+        '--imdb', 'rrData_2021_test', '--noise', LOOP_NOISE,
+        '--eval-batch', str(B), '--model', npz,
+        '--set', 'DATA_DIR', root, 'ROOT_DIR', root]
+    buf = io.StringIO()
+    with taped() as calls, contextlib.redirect_stdout(buf):
+        aps, wall, counts, _ = run_cli(cli_test.main, argv)
+    printed = buf.getvalue()
+    held = hold_to_plain(calls, 'cli.test --model (converted res101)', card)
+    del calls
+    n_params = len(FasterRCNN('res101', num_classes=2).state_dict())
+    want = f'Loaded {entries}/{n_params} parameters'
+    if want not in printed or 'WARNING' in printed:
+        raise AssertionError(f'cli.test on the converted .npz: no "{want}"'
+                             f' ({printed[-800:]})')
+    if len(aps) != 10 or not all(np.isfinite(a) for a in aps):
+        raise AssertionError(f'cli.test on the converted .npz: APs {aps}')
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    log(f'cli.convert res101 .pth -> {entries} entries in {t_convert:.2f} s;'
+        f' cli.test --model on it printed "{want}", {wall:.2f} s; launches '
+        f'{json.dumps(launches)}  [{card}]')
+    return {'cli.convert + cli.test': dict(
+        convert_s=t_convert, entries=entries, wall_s=wall,
+        launches=launches, held=held)}
+
+
+def automold_phase(card: str) -> dict:
+    """augment_random with each name of AUG_TYPES forced, on AUTOMOLD_B
+    seeded 600x1000 images on the card, one image a call, timed (ms per
+    image, the card synchronized); each add_sun_flare launch of kernel 8
+    held to its plain version; then AUTOMOLD_SMALL card against CPU for
+    every name (tests/test_torch_automold.py's bounds)."""
+    from tpudenoise_torch.noise import automold
+    rng = np.random.RandomState(18)
+    imgs = torch.from_numpy(rng.randint(0, 256, (AUTOMOLD_B, H, W, 3))
+                            .astype(np.float32)).to(DEV)
+    small = torch.from_numpy(rng.randint(0, 256, AUTOMOLD_SMALL).astype(
+        np.float32))
+    tapped = {'bloom_batched': (bl, 'bloom_batched', bloom_apply_scan)}
+    ms, worst = {}, {}
+    zero_counts()
+    with taped(tapped) as calls:
+        for name in automold.AUG_TYPES:
+            walls = []
+            for i, img in enumerate(imgs):
+                key = prng.fold_in(prng.PRNGKey(18), i)
+                out, t = _timed(automold.augment_random, key, img, [name])
+                if out.shape != img.shape or not torch.isfinite(out).all():
+                    raise AssertionError(f'automold {name}: {out.shape}')
+                walls.append(t * 1e3)
+            ms[name] = statistics.median(walls)
+    launches = {'bloom_batched': launch_counts()['bloom_batched']}
+    if launches['bloom_batched'] != AUTOMOLD_B:
+        raise AssertionError(f'automold add_sun_flare: launches {launches}')
+    held = hold_train_to_plain(calls, 'automold add_sun_flare', card)
+    del calls
+    for name in automold.AUG_TYPES:
+        share = []
+        for i, img in enumerate(small):
+            key = prng.fold_in(prng.PRNGKey(19), i)
+            got = automold.augment_random(key, img.to(DEV), [name]).cpu()
+            want = automold.augment_random(key, img, [name])
+            d = (got - want).abs()
+            if ((d > 1).double().mean() > AUTOMOLD_FAR
+                    or (d > 0).double().mean() > AUTOMOLD_NEAR):
+                raise AssertionError(f'automold {name}: card and CPU differ '
+                                     f'(max {d.max().item()})')
+            share.append((d > 0).double().mean().item())
+            worst[name] = max(worst.get(name, 0.0), d.max().item())
+    log(f'automold on the card, ms per {H}x{W} image (median of '
+        f'{AUTOMOLD_B}): ' + ', '.join(f'{k} {v:.2f}' for k, v in ms.items())
+        + f'; card vs CPU at {AUTOMOLD_SMALL[1:3]} max |diff| '
+        + ', '.join(f'{k} {v:g}' for k, v in worst.items())
+        + f'; launches {json.dumps(launches)}  [{card}]')
+    return {'automold': dict(ms_per_image=ms, small_max_abs_err=worst,
+                             launches=launches, held=held)}
+
+
+def slice16_phase(card: str, mob, cli: dict) -> dict:
+    """Phase 5f: the mobile chunks, the mobile training step, `cli.test
+    --net mobile --compute-id`, `cli.convert`'s torchvision path and the
+    Automold suite."""
+    out = mobile_paths(card, mob)
+    out.update(mobile_train(card))
+    out.update(mobile_compute_id(card, cli))
+    out.update(convert_cli(card, cli))
+    out.update(automold_phase(card))
+    return out
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -3299,10 +3789,18 @@ def main() -> int:
     done('5b training')
     e2e.update(grid_phase(card))
     done('5c grid')
+    # phase 5f before 5d, whose profiler sessions are the process's
+    # first: after a session, a run of unprofiled work as long as 5f's
+    # left torch.profiler dropping kernel records in the later reads
+    mob = chunk_inputs(dev, 'mobile')
+    e2e.update(slice16_phase(card, mob, cli))
+    done('5f mobile, convert, automold')
     e2e.update(shape_phase(card, rows))
     done('5d shapes')
     prof = profile_paths(vgg, card, NOISES)
     prof.update(profile_paths(res, card, RES_NOISES, 'res101 '))
+    prof.update(profile_paths(mob, card, MOBILE_NOISES, 'mobile '))
+    del mob
     e2e.update(cli_profiled(card, cli))
     train_info['profile'] = train_profiled(card, train_timed)
     del train_timed

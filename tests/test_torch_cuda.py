@@ -1069,3 +1069,67 @@ def test_curvelet_card_matches_cpu(dev):
         got = curvelet_denoise_batched(imgs.to(dev)).cpu()
         d = (got - want).abs()
         assert d.max() <= bound and (d > 0).float().mean() <= share
+
+
+def test_mobile_forward_card_matches_cpu(dev):
+    """A seeded f32 mobile (full width, BN statistics randomized: the
+    seeded BN is the identity) on the card against the CPU, with
+    test_res50_chunk_forward_card_matches_cpu's bounds: each logit within
+    2**-5 of its RoI's largest (the heads run in bf16), the same
+    proposals kept, each within 0.1 px."""
+    from tpudenoise_torch.models.faster_rcnn import FasterRCNN
+    m = FasterRCNN('mobile', num_classes=5, dtype=torch.float32)
+    m.cfg.TEST.RPN_PRE_NMS_TOP_N, m.cfg.TEST.RPN_POST_NMS_TOP_N = 256, 16
+    params = m.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    for name, p in params.items():
+        if name.rsplit('.', 1)[-1] in ('gamma', 'var'):
+            p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
+        elif name.rsplit('.', 1)[-1] in ('beta', 'mean'):
+            p.copy_(torch.from_numpy(rng.randn(*p.shape) * 0.1))
+    imgs = torch.from_numpy((np.random.RandomState(1).randn(2, 96, 128, 3)
+                             * 50).astype(np.float32))
+    info = torch.tensor([[96., 128., 1.], [80., 112., 1.]])
+    want = m.forward_test(params, imgs, info)
+    m.to(dev)
+    got = m.forward_test({k: v.to(dev) for k, v in params.items()},
+                         imgs.to(dev), info.to(dev))
+    assert torch.equal(got['roi_mask'].cpu(), want['roi_mask'])
+    diff = (got['cls_score'].cpu() - want['cls_score']).abs()
+    scale = want['cls_score'].abs().amax(-1, keepdim=True)
+    assert (diff <= 2**-5 * scale).all(), (diff / scale).max()
+    for g, w in zip(got['rois'].cpu(), want['rois']):
+        assert ((g[:, None] - w[None]).abs().amax(-1).amin(0) < 0.1).all()
+
+
+AUG_NAMES = ['random_brightness', 'add_shadow', 'add_snow', 'add_rain',
+             'add_fog', 'add_gravel', 'add_sun_flare', 'add_speed',
+             'add_autumn', 'random_flip', 'add_manhole']
+
+
+@pytest.mark.parametrize('name', AUG_NAMES)
+def test_automold_card_matches_cpu(dev, name):
+    """augment_random with one name forced, on two 120x160 images and one
+    75x99, card against CPU, tests/test_torch_automold.py's bounds: at
+    most 1e-3 of the values more than one level off, 1e-2 off at all;
+    add_sun_flare launches kernel 8 once an image, bit-equal."""
+    from tpudenoise_torch.core import prng
+    from tpudenoise_torch.noise import automold
+    from tpudenoise_torch.noise import bloom
+    assert automold.AUG_TYPES == AUG_NAMES
+    rng = np.random.RandomState(7)
+    imgs = [rng.randint(0, 256, s).astype(np.float32)
+            for s in ((120, 160, 3), (120, 160, 3), (75, 99, 3))]
+    before = bloom.launches['bloom']
+    for i, im in enumerate(imgs):
+        key = prng.fold_in(prng.PRNGKey(9), i)
+        want = automold.augment_random(key, torch.from_numpy(im), [name])
+        got = automold.augment_random(key, torch.from_numpy(im).to(dev),
+                                      [name]).cpu()
+        d = (got - want).abs()
+        assert (d > 1).float().mean() <= 1e-3 and \
+            (d > 0).float().mean() <= 1e-2, d.max()
+        if name == 'add_sun_flare':
+            assert torch.equal(got, want)
+    assert bloom.launches['bloom'] - before == (
+        len(imgs) if name == 'add_sun_flare' else 0)

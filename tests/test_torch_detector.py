@@ -158,8 +158,40 @@ def test_bf16_default_runs_and_other_backbones_raise():
                          torch.tensor([[64., 96., 1.]]))
     assert out['cls_prob'].dtype == torch.float32
     assert torch.isfinite(out['cls_prob']).all()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        FasterRCNN('mobile')
+    # mobile in bf16 (depth 0.25, the seeded init with its BN statistics
+    # randomized) against the JAX package's bf16 forward on the same
+    # weights: the feature means within one bf16 ulp (measured: equal),
+    # cls_prob within 1e-4 (its heads are bf16 in both), the same
+    # roi_mask and rois within 1e-2 px
+    from tests.test_torch_resnet import _randomize
+    from tpudenoise.core.config import default_config as jcfg
+    from tpudenoise.models.faster_rcnn import FasterRCNN as JRCNN
+    from tpudenoise_torch.core.config import default_config
+    from tpudenoise_torch.models import convert
+    jc, tc = jcfg(), default_config()
+    for c in (jc, tc):
+        c.MOBILENET.DEPTH_MULTIPLIER = 0.25
+        c.TEST.RPN_PRE_NMS_TOP_N, c.TEST.RPN_POST_NMS_TOP_N = 128, 16
+    m = FasterRCNN('mobile', num_classes=3, cfg=tc)
+    assert m.dtype == torch.bfloat16
+    jp = _randomize(convert._unflatten(convert.to_jax_flat(m.init(
+        torch.Generator().manual_seed(0)))), np.random.RandomState(0))
+    jm = JRCNN(backbone='mobile', num_classes=3, cfg=jc)
+    img = (np.random.RandomState(3).randn(1, 64, 96, 3) * 40).astype(
+        np.float32)
+    got = m.forward_test(convert.from_jax_params(jp), torch.from_numpy(img),
+                         torch.tensor([[64., 96., 1.]]))
+    want = jm.forward_test(jp, jnp.asarray(img[0]),
+                           jnp.asarray([64., 96., 1.]))
+    wf = np.asarray(want['feat_pooled'])
+    assert np.all(np.abs(got['feat_pooled'][0].numpy() - wf)
+                  <= np.abs(wf) * 2.0 ** -8)
+    assert np.abs(got['cls_prob'][0].numpy()
+                  - np.asarray(want['cls_prob'])).max() <= 1e-4
+    np.testing.assert_array_equal(got['roi_mask'][0].numpy(),
+                                  np.asarray(want['roi_mask']))
+    for row in np.asarray(want['rois']):
+        assert np.abs(got['rois'][0].numpy() - row).max(1).min() < 1e-2
 
 
 def test_vgg16_feat_pooled_matches(detectors):

@@ -94,7 +94,52 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.denoise.curvelet',
             'tpudenoise_torch.cli.fdct',
             'tpudenoise_torch.analysis.twonn',
-            'tpudenoise_torch.benchmarks.profile_curvelet'} <= names
+            'tpudenoise_torch.benchmarks.profile_curvelet',
+            'tpudenoise_torch.models.backbones.mobilenet',
+            'tpudenoise_torch.noise.automold',
+            'tpudenoise_torch.cli.convert'} <= names
+
+
+def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml():
+    """With jax, flax, `tpudenoise`, tensorflow, cv2, PIL and yaml
+    refused: mobilenet, automold and the convert CLI import; `python -m
+    tpudenoise_torch.cli.convert --help` exits 0, and a tf-slim source
+    raises naming TensorFlow and the JAX CLI."""
+    refused = REFUSED + ('tensorflow', 'cv2', 'PIL', 'yaml')
+    code = textwrap.dedent(f'''
+        import importlib.abc, runpy, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split('.')[0] in {refused!r}:
+                    raise ImportError('refused: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        from tpudenoise_torch.cli import convert
+        from tpudenoise_torch.models.backbones import mobilenet
+        from tpudenoise_torch.noise import automold
+        sys.argv = ['tpudenoise_torch.cli.convert', '--help']
+        try:
+            runpy.run_module('tpudenoise_torch.cli.convert',
+                             run_name='__main__')
+        except SystemExit as e:
+            assert e.code in (0, None), e.code
+        try:
+            convert.main(['--src', 'vgg_16.ckpt', '--net', 'vgg16',
+                          '--out', 'x.npz'])
+        except NotImplementedError as e:
+            assert 'TensorFlow' in str(e)
+            assert 'tpudenoise.cli.convert' in str(e)
+        else:
+            raise AssertionError('a tf-slim source was not refused')
+        bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
+        print('CONVERT OK', bad)
+    ''')
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'CONVERT OK []' in res.stdout, res.stdout[-2000:]
+    assert '--detector' in res.stdout
 
 
 def test_dataset_loop_runs_without_cv2_or_pil(tmp_path):

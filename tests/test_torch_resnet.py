@@ -193,12 +193,24 @@ def test_shortcuts_and_strides():
 
 
 def test_other_backbones_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 15'):
-        FasterRCNN('mobile')
+    """mobile builds, its state dict key for key and shape for shape the
+    converted JAX init (full width, 21 classes); res34 and a head of
+    unknown layers raise."""
+    from tpudenoise.models.faster_rcnn import FasterRCNN as JRCNN
+    jc, tc = _configs()
+    shapes = jax.eval_shape(
+        lambda k: JRCNN(backbone='mobile', num_classes=21, cfg=jc).init(
+            k, SIZE), jax.random.PRNGKey(0))
+    got = from_jax_params(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes))
+    want = FasterRCNN('mobile', num_classes=21, cfg=tc).state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
     with pytest.raises(ValueError, match='unknown'):
         FasterRCNN('res34')
-    tree = {'head': {'layer_0': {}}, 'rpn': {}, 'tail': {}}
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    tree = {'head': {'stem': {}}, 'rpn': {}, 'tail': {}}
+    with pytest.raises(ValueError, match='not a vgg16, resnet or mobilenet'):
         from_jax_params(tree)
 
 

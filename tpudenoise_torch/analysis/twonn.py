@@ -89,8 +89,8 @@ def compute_id(activations, nres: int = 20, fraction: float = 0.9,
 
 # the probe points of the reference's ID study, per backbone: the conv3
 # output of named bottleneck units for the resnets, named conv layers for
-# vgg16 (`tpudenoise/analysis/twonn.py:121-149`; mobile's stand-ins come
-# with its backbone, ROADMAP Queue 1 item 15)
+# vgg16, and for mobile the pointwise conv's output (before pw_bn) of
+# every other depthwise layer (`tpudenoise/analysis/twonn.py:121-149`)
 PROBES = {
     'res101': ['block1/unit_1/conv3', 'block2/unit_1/conv3',
                'block2/unit_4/conv3', 'block3/unit_8/conv3',
@@ -108,6 +108,9 @@ PROBES = {
                'block3/unit_23/conv3'],
     'vgg16': ['conv1_1', 'conv1_2', 'conv2_2', 'conv3_3', 'conv4_3',
               'conv5_3'],
+    'mobile': ['layer_1/pointwise', 'layer_3/pointwise',
+               'layer_5/pointwise', 'layer_7/pointwise',
+               'layer_9/pointwise', 'layer_11/pointwise'],
 }
 
 

@@ -101,9 +101,6 @@ def refuse_unported(args):
         if getattr(args, flag, False):
             raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
                                       f'Queue 1 item {item})')
-    if args.net == 'mobile':
-        raise NotImplementedError('--net mobile: backbones/mobilenet.py is '
-                                  'not ported yet (ROADMAP Queue 1 item 15)')
 
 
 def main(argv=None):

@@ -72,9 +72,6 @@ def main(argv=None):
     if args.distributed:
         raise NotImplementedError('--distributed (multi-host training) is '
                                   'not ported yet (ROADMAP Queue 1 item 16)')
-    if args.net == 'mobile':
-        raise NotImplementedError('--net mobile: backbones/mobilenet.py is '
-                                  'not ported yet (ROADMAP Queue 1 item 15)')
     device = resolve_device(args.device)
     from tpudenoise_torch.core.config import (cfg, cfg_from_file,
                                               cfg_from_list, get_output_dir,

@@ -38,12 +38,11 @@ class AttrDict(dict):
 
 def default_config() -> AttrDict:
     """The JAX package's defaults, key for key.  No code of the port reads
-    these yet: TRAIN.* but BBOX_NORMALIZE_MEANS/STDS (training is ROADMAP
-    Queue 1 item 12), TEST.SVM/BBOX_REG/HAS_RPN/PROPOSAL_METHOD,
-    RESNET.FIXED_BLOCKS/FREEZE_ROOT, MOBILENET.* (item 15), MATLAB,
-    USE_NATIVE_NMS/USE_GPU_NMS/USE_E2E_TF, POOLING_MODE and TPU.*; they are
-    here so that the cfg files and `--set` overlays apply as in the JAX
-    package."""
+    TEST.SVM/BBOX_REG/HAS_RPN, MOBILENET.REGU_DEPTH/WEIGHT_DECAY (the JAX
+    package reads them nowhere either: its step decays every kernel by
+    TRAIN.WEIGHT_DECAY), USE_GPU_NMS/USE_E2E_TF, POOLING_MODE or TPU.*;
+    they are here so that the cfg files and `--set` overlays apply as in
+    the JAX package."""
     C = AttrDict()
 
     C.TRAIN = AttrDict()

@@ -8,9 +8,13 @@ stores it (`load_params_npz`).  Conv kernels go HWIO -> OIHW, Dense
 kernels (in, out) -> (out, in); fc6's rows keep the HWC flatten order of
 (R, 7, 7, 512), which the port's tail reproduces.  The resnet trees
 (`head/{conv1, conv1_bn, blockN/unit_K/{conv1..3, bn1..3, shortcut,
-shortcut_bn}}`, `tail/tail/block4/...`) map name for name; their convs have
-no bias and their BN statistics become state-dict entries (buffers in the
-head, parameters in block4, which training updates).
+shortcut_bn}}`, `tail/tail/block4/...`) and the mobilenet trees
+(`head/layer_0/{conv, bn}`, `head/layer_i/{depthwise, dw_bn, pointwise,
+pw_bn}` for i in 1..11, `tail/tail/layer_{12,13}/...`) map name for name;
+their convs have no bias (a depthwise kernel (3, 3, 1, C) becomes
+(C, 1, 3, 3), a pointwise (1, 1, Cin, Cout) (Cout, Cin, 1, 1)) and their
+BN statistics become state-dict entries (buffers in the head, parameters
+in the tail, which training updates).
 
 The `.npz` layout is flat keys 'tree/sub/.../leaf' -> array, as
 `tpudenoise.models.convert.save_params_npz` writes it; `load_params_npz`
@@ -55,39 +59,40 @@ def _dense(sd, name, p):
     sd[name + '.bias'] = _t(p['bias'])
 
 
-def _resnet(sd, prefix, tree):
-    """A resnet subtree: bias-free conv kernels ('kernel' only) and frozen
-    BN statistics ('gamma', 'beta', 'mean', 'var'), nested by block and
-    unit."""
+def _bn_backbone(sd, prefix, tree):
+    """A resnet or mobilenet subtree: bias-free conv kernels ('kernel'
+    only) and frozen BN statistics ('gamma', 'beta', 'mean', 'var'),
+    nested by block and unit, or by layer."""
     for name, p in tree.items():
         if 'kernel' in p:
             if 'bias' in p:
-                raise ValueError(f'{prefix}{name}: resnet convs have no bias')
+                raise ValueError(f'{prefix}{name}: resnet and mobilenet '
+                                 f'convs have no bias')
             sd[f'{prefix}{name}.weight'] = _t(p['kernel'], (3, 2, 0, 1))
         elif 'gamma' in p:
             for leaf in ('gamma', 'beta', 'mean', 'var'):
                 sd[f'{prefix}{name}.{leaf}'] = _t(p[leaf])
         else:
-            _resnet(sd, f'{prefix}{name}.', p)
+            _bn_backbone(sd, f'{prefix}{name}.', p)
 
 
 def from_jax_params(tree: dict) -> dict:
-    """vgg16 or res50/101/152 Faster R-CNN param tree -> state dict of
-    `FasterRCNN`."""
+    """vgg16, res50/101/152 or mobile Faster R-CNN param tree -> state
+    dict of `FasterRCNN`."""
     sd = {}
     head = tree['head']
-    if 'block1' in head:                       # resnet
-        _resnet(sd, 'head.', head)
-        _resnet(sd, 'tail.', tree['tail']['tail'])
+    if 'block1' in head or 'layer_0' in head:  # resnet, mobilenet
+        _bn_backbone(sd, 'head.', head)
+        _bn_backbone(sd, 'tail.', tree['tail']['tail'])
     elif 'conv1_1' in head:                    # vgg16
         for name, p in head.items():
             _conv(sd, 'head.' + name, p)
         for name in ('fc6', 'fc7'):
             _dense(sd, 'tail.' + name, tree['tail']['tail'][name])
     else:
-        raise NotImplementedError(
-            f'head layers {sorted(head)[:4]}: only the vgg16 and resnet '
-            f'backbones are ported (mobilenet is ROADMAP Queue 1 item 15)')
+        raise ValueError(
+            f'head layers {sorted(head)[:4]}: not a vgg16, resnet or '
+            f'mobilenet tree')
     for name in ('rpn_conv', 'rpn_cls_score', 'rpn_bbox_pred'):
         _conv(sd, 'rpn.' + name, tree['rpn'][name])
     for name in ('cls_score', 'bbox_pred'):
@@ -184,3 +189,65 @@ def merge_pretrained(state_dict: dict, tree: dict) -> dict:
     print(f'Loaded {n_hit}/{len(flat)} parameters from pretrained weights')
     return from_jax_params(_unflatten(
         {k: pre.get(k, v) for k, v in flat.items()}))
+
+
+# ------------------------------------------------ torchvision resnets --
+
+UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+def _bgr_flip_conv(w: np.ndarray) -> np.ndarray:
+    """Reverse the input-channel axis of an HWIO conv kernel: the RGB ->
+    BGR surgery on the first conv."""
+    return w[:, :, ::-1, :]
+
+
+def convert_torch_resnet(state_dict: dict, num_layers: int) -> dict:
+    """torchvision resnet{50,101,152} state dict (numpy arrays) -> the
+    {'head', 'tail'} trees of the JAX layout (a numpy copy of
+    `tpudenoise.models.convert.convert_torch_resnet`).
+
+    OIHW conv kernels -> HWIO, conv1's input channels flipped to BGR; BN
+    weight, bias, running_mean and running_var -> gamma, beta, mean and
+    var; layer{b}.{k} -> block{b}/unit_{k+1}, downsample -> shortcut.
+    torchvision strides the first unit of a layer where slim (and both
+    packages) stride the last: the weights map all the same, but the
+    features differ from a slim checkpoint's.  The normalization of
+    torchvision's [0, 1] RGB inputs is not folded into conv1."""
+    units = UNITS[num_layers]
+
+    def conv(name):
+        w = np.asarray(state_dict[name + '.weight'])
+        return {'kernel': np.transpose(w, (2, 3, 1, 0))}
+
+    def bn(name):
+        return {'gamma': np.asarray(state_dict[name + '.weight']),
+                'beta': np.asarray(state_dict[name + '.bias']),
+                'mean': np.asarray(state_dict[name + '.running_mean']),
+                'var': np.asarray(state_dict[name + '.running_var'])}
+
+    head = {'conv1': {'kernel': _bgr_flip_conv(conv('conv1')['kernel'])},
+            'conv1_bn': bn('bn1')}
+    trees = {'head': head, 'tail': {'tail': {}}}
+    for b in range(1, 5):
+        block = {}
+        for u in range(units[b - 1]):
+            base = f'layer{b}.{u}'
+            unit = {}
+            if base + '.downsample.0.weight' in state_dict:
+                unit['shortcut'] = conv(base + '.downsample.0')
+                unit['shortcut_bn'] = bn(base + '.downsample.1')
+            for i in (1, 2, 3):
+                unit[f'conv{i}'] = conv(f'{base}.conv{i}')
+                unit[f'bn{i}'] = bn(f'{base}.bn{i}')
+            block[f'unit_{u + 1}'] = unit
+        dest = trees['head'] if b < 4 else trees['tail']['tail']
+        dest[f'block{b}'] = block
+    return trees
+
+
+def save_tree_npz(tree: dict, path: str):
+    """Write a JAX-layout tree (nested dicts of arrays) as the `.npz` of
+    flat 'tree/sub/.../leaf' keys, in the tree's order, as
+    `tpudenoise.models.convert.save_params_npz` writes it."""
+    np.savez(path, **{k: np.asarray(v) for k, v in _flatten(tree).items()})

@@ -18,7 +18,7 @@ from torch import nn
 
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import AttrDict, default_config
-from tpudenoise_torch.models.backbones import resnet, vgg
+from tpudenoise_torch.models.backbones import mobilenet, resnet, vgg
 from tpudenoise_torch.models.rpn import RCNNHead, RPNHead, rpn_softmax_scores
 from tpudenoise_torch.ops.anchors import anchor_grid, num_anchors
 from tpudenoise_torch.ops.proposal import proposal_layer, proposal_top_layer
@@ -45,18 +45,13 @@ class _Losses(nn.Module):
 
 
 class FasterRCNN(nn.Module):
-    """backbone: 'vgg16', 'res50', 'res101' or 'res152' ('mobile' is
-    still to be ported)."""
+    """backbone: 'vgg16', 'res50', 'res101', 'res152' or 'mobile'."""
 
     def __init__(self, backbone: str = 'res101', num_classes: int = 21,
                  anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2),
                  cfg: AttrDict | None = None, dtype=torch.bfloat16):
         super().__init__()
-        if backbone == 'mobile':
-            raise NotImplementedError(
-                'backbone mobile: backbones/mobilenet.py is not ported yet '
-                '(ROADMAP Queue 1 item 15)')
-        if backbone not in ('vgg16', 'res50', 'res101', 'res152'):
+        if backbone not in ('vgg16', 'res50', 'res101', 'res152', 'mobile'):
             raise ValueError(f'unknown backbone {backbone!r}')
         self.backbone = backbone
         self.num_classes = num_classes
@@ -73,6 +68,14 @@ class FasterRCNN(nn.Module):
             feat_c, fc_c = 512, 4096
             self.pool_then_max = True       # crop 14 -> max-pool 7
             self.frozen_filter = vgg.frozen_param_filter()
+        elif backbone == 'mobile':
+            dm = self.cfg.MOBILENET.DEPTH_MULTIPLIER
+            head = mobilenet.MobileNetV1Head(dm, dtype)
+            tail = mobilenet.MobileNetV1Tail(dm, dtype)
+            feat_c, fc_c = head.out_channels, tail.out_channels
+            self.pool_then_max = True       # crop 14 -> max-pool 7
+            self.frozen_filter = mobilenet.frozen_param_filter(
+                self.cfg.MOBILENET.FIXED_LAYERS)
         else:
             n = int(backbone[3:])
             head, tail = resnet.ResNetHead(n, dtype), resnet.ResNetTail(
@@ -94,8 +97,11 @@ class FasterRCNN(nn.Module):
 
     def init(self, generator: torch.Generator, image_shape=(608, 1024)):
         """Seeded random init of every parameter (image_shape is accepted
-        for parity with the JAX `init`; the shapes do not depend on it).
-        Returns the parameters as a state dict."""
+        for parity with the JAX `init`; the shapes do not depend on it):
+        flax's lecun-normal conv and dense kernels, zero biases, identity
+        BN (every resnet conv3 zeroed), and the RPN and class heads'
+        normals, drawn from `generator` in the order head, rpn, tail,
+        rcnn.  Returns the parameters as a state dict."""
         for m in (self.head, self.rpn, self.tail, self.rcnn):
             m.reset_parameters(generator)
         return self.state_dict()

@@ -23,14 +23,14 @@ def no_default_init(cls, *args, **kw) -> nn.Module:
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype, stride: int = 1
          ) -> torch.Tensor:
     """SAME conv of an NCHW tensor in the compute dtype, with the layer's
-    bias if it has one.  For the detector's kernels, all odd, flax's SAME
-    at stride 1 and slim's conv2d_same at stride > 1 (an explicit
-    ((k-1)//2, k-1-(k-1)//2) pad, then VALID) are both a symmetric pad of
-    (k-1)//2."""
+    bias if it has one and its groups (mobilenet's depthwise convs).  For
+    the detector's kernels, all odd, flax's SAME at stride 1 and slim's
+    conv2d_same at stride > 1 (an explicit ((k-1)//2, k-1-(k-1)//2) pad,
+    then VALID) are both a symmetric pad of (k-1)//2."""
     k = layer.kernel_size[0]
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, stride=stride,
-                    padding=(k - 1) // 2)
+                    padding=(k - 1) // 2, groups=layer.groups)
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:

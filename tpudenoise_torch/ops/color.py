@@ -115,3 +115,88 @@ def ycbcr_to_rgb01(ycbcr: torch.Tensor) -> torch.Tensor:
     g = _f32(0.00456621) * y - _f32(0.00153632) * cb - _f32(0.00318811) * cr
     b = _f32(0.00456621) * y + _f32(0.00791071) * cb
     return torch.stack([r, g, b], -1)
+
+
+# ------------------------------------------------------- HLS and HSV --
+# cv2's 8-bit HLS and HSV (H in [0, 180), the rest in [0, 255]), the
+# Automold suite's colour spaces; in and out float32 holding u8 values,
+# RGB order, (..., 3).
+
+_INV255 = _f32(1.0 / 255.0)
+# H / 60 as XLA rewrites a division by a constant: H * f32(1 / 60)
+_INV60 = _f32(1.0 / 60.0)
+
+
+def _hue(r, g, b, vmax, c):
+    """Hue in degrees [0, 360) from RGB in [0, 1]: 0 where c == 0."""
+    safe_c = torch.clamp(c, min=_f32(1e-12))
+    h = torch.where(vmax == r, (g - b) / safe_c,
+                    torch.where(vmax == g, 2.0 + (b - r) / safe_c,
+                                4.0 + (r - g) / safe_c))
+    h = torch.where(c == 0, 0.0, h) * 60.0
+    return torch.where(h < 0, h + 360.0, h)
+
+
+def rgb_u8_to_hls_u8(img: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(x, COLOR_RGB2HLS) for 8-bit input."""
+    x = img * _INV255
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    vmax = torch.maximum(torch.maximum(r, g), b)
+    vmin = torch.minimum(torch.minimum(r, g), b)
+    l = (vmax + vmin) * 0.5
+    c = vmax - vmin
+    s = torch.where(c == 0, 0.0, torch.where(
+        l < 0.5, c / torch.clamp(vmax + vmin, min=_f32(1e-12)),
+        c / torch.clamp(2.0 - vmax - vmin, min=_f32(1e-12))))
+    out = torch.stack([_hue(r, g, b, vmax, c) * 0.5, l * 255.0, s * 255.0],
+                      -1)
+    return torch.clamp(torch.round(out), 0.0, 255.0)
+
+
+def rgb_u8_to_hsv_u8(img: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(x, COLOR_RGB2HSV) for 8-bit input."""
+    x = img * _INV255
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    vmax = torch.maximum(torch.maximum(r, g), b)
+    vmin = torch.minimum(torch.minimum(r, g), b)
+    c = vmax - vmin
+    s = torch.where(vmax == 0, 0.0, c / torch.clamp(vmax, min=_f32(1e-12)))
+    out = torch.stack([_hue(r, g, b, vmax, c) * 0.5, s * 255.0,
+                       vmax * 255.0], -1)
+    return torch.clamp(torch.round(out), 0.0, 255.0)
+
+
+def _sector_rgb(hp, c, m):
+    """RGB from the hue sector hp = H / 60, chroma c and offset m, as
+    u8-domain floats."""
+    xcomp = c * (1.0 - torch.abs(torch.remainder(hp, 2.0) - 1.0))
+    z = torch.zeros_like(c)
+    idx = torch.clamp(torch.floor(hp), 0, 5)
+    # sector: 0 (c, x, 0), 1 (x, c, 0), 2 (0, c, x), 3 (0, x, c),
+    # 4 (x, 0, c), 5 (c, 0, x)
+    r = torch.where((idx == 0) | (idx == 5), c,
+                    torch.where((idx == 1) | (idx == 4), xcomp, z))
+    g = torch.where((idx == 1) | (idx == 2), c,
+                    torch.where((idx == 0) | (idx == 3), xcomp, z))
+    b = torch.where((idx == 3) | (idx == 4), c,
+                    torch.where((idx == 2) | (idx == 5), xcomp, z))
+    out = torch.stack([r + m, g + m, b + m], -1) * 255.0
+    return torch.clamp(torch.round(out), 0.0, 255.0)
+
+
+def hsv_u8_to_rgb_u8(hsv: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(x, COLOR_HSV2RGB) for 8-bit input."""
+    h = hsv[..., 0] * 2.0
+    s = hsv[..., 1] * _INV255
+    v = hsv[..., 2] * _INV255
+    c = v * s
+    return _sector_rgb(h * _INV60, c, v - c)
+
+
+def hls_u8_to_rgb_u8(hls: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(x, COLOR_HLS2RGB) for 8-bit input."""
+    h = hls[..., 0] * 2.0
+    l = hls[..., 1] * _INV255
+    s = hls[..., 2] * _INV255
+    c = torch.where(l < 0.5, 2.0 * l * s, (2.0 - 2.0 * l) * s)
+    return _sector_rgb(h * _INV60, c, l - 0.5 * c)
