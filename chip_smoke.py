@@ -156,9 +156,10 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      session, the device's activity only, marker kernels between the
      runs); kernel 3
      and the walk timed at the pyramid's and COCO's postprocess shapes;
-  5e. the last single-card options (run last, after phase 6 and the
-     kernels' device-time reads: run before them, its curvelet chunks
-     left torch.profiler dropping kernel records in those reads), seeded
+  5e. the last single-card options (run after phase 6 and the
+     kernels' device-time reads, before 5g: run before those reads, its
+     curvelet chunks left torch.profiler dropping kernel records in
+     them), seeded
      res101 bf16 at
      full width and depth, batch 8, raw 600x1000, bucket 608x1024:
      `--fast-rng` on poisson, gamma_var0.3, brownian_var0.09 and
@@ -212,7 +213,26 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      without it; the profiler's start, the profiled block and the trace
      export timed apart); then two training steps under torch.profiler
      (the step's idle share); then each kernel's device time on phase
-     3's inputs.
+     3's inputs;
+  5g. data parallelism (last; its ranks are processes of their own,
+     `python3 chip_smoke.py --rank SPEC`, in torchrun's environment):
+     references in this process, `cli.trainval` res101 on the training
+     phase's images, 3 iterations at --batch 1 (bf16) and --batch 2
+     (f32 with f32 class heads), and `cli.test --eval-batch 8` over the
+     CLI phase's 16 images; then a world of one over NCCL and a world of
+     two sharing the card over gloo, each rank running the spatial
+     median, mean and gaussian on (8, 600, 1000, 3), H split over the
+     ranks and gathered bit-equal to the stencils (both timed), one
+     all-reduce of res101's trainable gradients (timed), `cli.test
+     --distributed` (a warm call, then a timed one) and `cli.trainval
+     --distributed --batch <ranks>`, every launch held to its plain
+     version.  World 1 bit-equal to the reference without
+     --distributed (losses and parameters); world 2's step-1 losses and
+     later RPN losses within 1e-4 of the --batch 2 reference's (its
+     later RoI terms logged: DP_LOSS_RTOL), its frozen parameters
+     bit-equal and both ranks' parameters bit-equal; each world's detections
+     matching the reference's at phase 4's tolerance.  Two ranks on one
+     card check correctness, not scaling.
 Each kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 T/s (the card's non-tensor f32
 rate; integer and transcendental operations counted one each, from the
@@ -1872,10 +1892,13 @@ def recording():
     seen, restored = [], []
 
     def on_step(it, key, k_noise, k_step, raw, losses):
-        seen.append(dict(it=it, key=key.tolist(), k_noise=k_noise.tolist(),
+        # the losses read back first: t is when the step had finished
+        losses = {k: v.item() for k, v in losses.items()}
+        seen.append(dict(it=it, t=time.perf_counter(), key=key.tolist(),
+                         k_noise=k_noise.tolist(),
                          k_step=k_step.tolist(),
                          batch={k: v.copy() for k, v in raw.items()},
-                         losses={k: v.item() for k, v in losses.items()}))
+                         losses=losses))
 
     def train_model(fn):
         def call(self, max_iters, resume=True, on_step=None):
@@ -1915,20 +1938,29 @@ def check_train_launches(counts: dict, net: str, noise: str, iters: int,
 
 
 def train_cli(card: str, inp: dict, net: str, noise: str, iters: int,
-              tag: str, fast: bool = False) -> tuple:
-    """cli.trainval in process (with --fast-rng when fast), every launch
-    taped and held to its plain version; returns (entry for e2e, the
+              tag: str, fast: bool = False, extra=(), check: bool = True
+              ) -> tuple:
+    """cli.trainval in process (with --fast-rng when fast, and the flags
+    of extra), every launch taped and held to its plain version; with
+    check, the launches as one image a step makes them, else each
+    counted kernel launched at least once; returns (entry for e2e, the
     final state, the iterations seen, the states restored, the config it
     ran with)."""
     from tpudenoise_torch.cli import trainval
-    path = f'train {net} {noise} --iters {iters}' + (' --fast-rng' if fast
-                                                     else '')
+    path = (f'train {net} {noise} --iters {iters}'
+            + (' --fast-rng' if fast else '') + ''.join(
+                f' {a}' for a in extra))
     with taped(TRAIN_TAPPED) as calls, recording() as (seen, restored):
         state, wall, counts, cfg = run_cli(
-            trainval.main, (['--fast-rng'] if fast else [])
+            trainval.main, (['--fast-rng'] if fast else []) + list(extra)
             + train_argv(inp, net, noise, iters, tag))
-    launches = check_train_launches(counts, net, noise, len(seen), path,
-                                    fast)
+    if check:
+        launches = check_train_launches(counts, net, noise, len(seen), path,
+                                        fast)
+    else:
+        launches = {k: counts[k] for k in calls}
+        if not all(launches.values()):
+            raise AssertionError(f'{path} launches {launches}')
     held = hold_train_to_plain(calls, path, card)
     losses = [s['losses'] for s in seen]
     if not all(np.isfinite(v) for x in losses for v in x.values()):
@@ -3406,8 +3438,8 @@ def mobile_train(card: str) -> dict:
     inits = []
 
     def spy(make):
-        def call(model, cfg):
-            init, step = make(model, cfg)
+        def call(model, cfg, **kw):
+            init, step = make(model, cfg, **kw)
 
             def init_state(*a):
                 st = init(*a)
@@ -3666,6 +3698,391 @@ def slice16_phase(card: str, mob, cli: dict) -> dict:
     return out
 
 
+# ------------------------------------------------ slice 17: phase 5g --
+
+# the data-parallel phase: training iterations a run, the timed
+# repetitions of the spatial filters and the all-reduce, the loss terms
+# held, and the time a group of ranks may take
+DP_ITERS = 3
+DP_REPS = 5
+DP_LOSSES = ('rpn_cross_entropy', 'rpn_loss_box', 'cross_entropy',
+             'loss_box', 'total_loss')
+# the world of two against one process on the same global batch, both
+# with the model and its class heads in f32 (in bf16 a rank's one-image
+# convolutions and the one process's two-image ones round apart:
+# cross_entropy 1.6e-3 apart at step 1; with bf16 heads alone, 1.15e-4):
+# step 1 (from the same parameters) every loss term within this relative
+# bound, later steps the RPN terms.  After step 1 the parameters differ
+# by rounding, and a proposal whose score ties another's within it can
+# swap places among the sampled RoIs: one of two runs on an H100 took
+# another sample at step 2 (cross_entropy 3.6e-2 apart, the RPN terms
+# 1e-7), so the RoI terms of later steps are logged, not held
+DP_LOSS_RTOL = 1e-4
+DP_RPN_LOSSES = ('rpn_cross_entropy', 'rpn_loss_box')
+DP_TIMEOUT = 600
+# the worlds: (ranks, backend); two ranks share the one card under gloo
+# (NCCL takes one GPU a rank), a check of correctness, not of scaling
+DP_WORLDS = ((1, 'nccl'), (2, 'gloo'))
+SPATIAL_KINDS = ('median', 'mean', 'gaussian')
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def param_hashes(model, params: dict) -> dict:
+    """sha256 of every parameter's bytes (sorted by name), and of the
+    frozen ones alone."""
+    import hashlib
+
+    def digest(names):
+        h = hashlib.sha256()
+        for n in sorted(names):
+            h.update(params[n].detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+    return dict(all=digest(params),
+                frozen=digest(n for n, _ in model.named_parameters()
+                              if model.frozen(n)))
+
+
+def launch_ranks(world: int, backend: str, spec: dict) -> list:
+    """The ranks of one process group, a process each, in torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
+    `python3 chip_smoke.py --rank SPEC` (`rank_main`).  A rank that
+    fails ends the others and fails the phase; so does a group that runs
+    past DP_TIMEOUT.  Returns each rank's result."""
+    import os.path as osp
+    import shutil
+    import subprocess
+    work = osp.join(default_config().ROOT_DIR, 'build', 'chip_smoke_dp',
+                    f'world{world}')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    spec = dict(spec, work=work, world=world, backend=backend)
+    with open(osp.join(work, 'spec.json'), 'w') as f:
+        json.dump(spec, f)
+    env = {**os.environ, 'WORLD_SIZE': str(world),
+           'MASTER_ADDR': 'localhost', 'MASTER_PORT': str(_free_port())}
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(osp.join(work, f'rank{r}.log'), 'w'))
+            procs.append(subprocess.Popen(
+                [sys.executable, osp.abspath(__file__), '--rank',
+                 osp.join(work, 'spec.json')],
+                env={**env, 'RANK': str(r), 'LOCAL_RANK': str(r)},
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.time() + DP_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0)
+                                             for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(osp.join(work, f'rank{r}.log')) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f'5g: rank {r} of {world} ({backend}) '
+                                 f'exited {p.returncode}:\n{text[-6000:]}')
+        for line in text.splitlines():
+            if line.startswith('5g'):
+                log(f'[rank {r}] {line}')
+    out = []
+    for r in range(world):
+        with open(osp.join(work, f'rank{r}.json')) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _median_ms(fn, reps: int = DP_REPS) -> float:
+    """The median wall time of fn() in ms, the card synchronized at both
+    ends of each call, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        times.append(_timed(fn)[1] * 1e3)
+    return statistics.median(times)
+
+
+def dp_spatial(mesh, dev, card: str, world: int) -> dict:
+    """Each spatial filter on (B, H, W, 3) u8-valued floats, H split over
+    the ranks: gathered, bit-equal to the single-device stencil; the
+    sharded call and the stencil timed."""
+    from tpudenoise_torch.core import mesh as M
+    from tpudenoise_torch.denoise import stencils
+    from tpudenoise_torch.parallel.spatial import (gather_spatial,
+                                                   make_spatial_filter,
+                                                   spatial_block)
+    imgs = torch.from_numpy(np.random.RandomState(17).randint(
+        0, 256, (B, H, W, 3)).astype(np.float32)).to(dev)
+    ref = {'median': stencils.median3, 'mean': stencils.mean3,
+           'gaussian': stencils.gaussian_blur3}
+    out = {}
+    for kind in SPATIAL_KINDS:
+        fn = make_spatial_filter(mesh, kind)
+        block = spatial_block(mesh, imgs)
+        got = gather_spatial(mesh, fn(block))
+        want = ref[kind](imgs)
+        if not torch.equal(got, want):
+            raise AssertionError(f'5g world {world}: spatial {kind} differs '
+                                 f'from the single-device stencil')
+        out[kind] = dict(sharded_ms=_median_ms(lambda: fn(block)),
+                         one_device_ms=_median_ms(lambda: ref[kind](imgs)),
+                         rows=block.shape[1])
+        log(f'5g world {world}: spatial {kind} on {tuple(imgs.shape)}, '
+            f'{block.shape[1]} rows a rank, gathered bit-equal to the '
+            f'stencil; sharded {out[kind]["sharded_ms"]:.3f} ms, one device '
+            f'{out[kind]["one_device_ms"]:.3f} ms  [{card}]')
+        M.agree(True, dev)
+    return out
+
+
+def dp_all_reduce(dev, card: str, world: int) -> dict:
+    """One all-reduce of a buffer the size of res101's trainable
+    gradients (f32), as the data-parallel step makes it, timed."""
+    import torch.distributed as dist
+    model = FasterRCNN('res101', num_classes=2)
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if not model.frozen(name))
+    flat = torch.ones(n, device=dev)
+    ms = _median_ms(lambda: dist.all_reduce(flat))
+    if not torch.all(flat == world ** (DP_REPS + 1)):
+        raise AssertionError(f'5g world {world}: the all-reduce summed '
+                             f'wrong')
+    log(f'5g world {world} ({dist.get_backend()}): one all-reduce of '
+        f'res101\'s {n} trainable gradients ({n * 4 / 1e6:.1f} MB f32): '
+        f'{ms:.3f} ms  [{card}]')
+    return dict(elements=n, ms=ms, backend=dist.get_backend())
+
+
+def dp_eval_argv(cli: dict, exp: str, extra=()) -> list:
+    import os.path as osp
+    return list(extra) + [
+        '--net', 'res101', '--cfg', osp.join(cli['repo'], 'experiments',
+                                             'cfgs', 'res101.yml'),
+        '--imdb', 'rrData_2021_test', '--noise', LOOP_NOISE,
+        '--eval-batch', str(B), '--model', cli['npz'], '--set', 'DATA_DIR',
+        cli['root'], 'ROOT_DIR', cli['root'], 'EXP_DIR', exp]
+
+
+def dp_eval(cli: dict, card: str, exp: str, extra=()) -> dict:
+    """cli.test over the CLI phase's images with the CLI phase's weights
+    (with extra flags), twice: the first call warms the process (cuDNN's
+    choices, the first launches), the second is timed (its
+    test_net_batched loop) and every launch of it held to its plain
+    version; where rank 0 wrote detections.pkl."""
+    import os.path as osp
+
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.eval import harness
+    path = f'5g cli.test {" ".join(extra)} --eval-batch {B}'
+    run_cli(cli_test.main, dp_eval_argv(cli, exp, extra))
+    loop = []
+    with taped() as calls, patched(harness, 'test_net_batched',
+                                   lambda fn: timing(fn, loop)):
+        aps, wall, counts, cfg = run_cli(cli_test.main,
+                                         dp_eval_argv(cli, exp, extra))
+    held = hold_to_plain(calls, path, card)
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f'{path} launches {launches}')
+    (eval_s,) = loop
+    dets = osp.join(get_output_dir('rrData_2021_test',
+                                   cli['npz'].replace('/', '_'), cfg),
+                    'detections.pkl')
+    log(f'{path}: test_net_batched {eval_s:.2f} s over {CLI_IMAGES} images '
+        f'({CLI_IMAGES / eval_s:.1f} img/s, {CLI_IMAGES / B / eval_s:.2f} '
+        f'chunks/s), launches {json.dumps(launches)}  [{card}]')
+    return dict(aps=aps, wall_s=wall, eval_s=eval_s,
+                img_per_s=CLI_IMAGES / eval_s, launches=launches, held=held,
+                detections=dets)
+
+
+@contextlib.contextmanager
+def f32_detector(on: bool = True):
+    """The CLIs' FasterRCNN built in f32, its class heads too (the CLIs
+    build bf16, and the heads in bf16 whatever the model's dtype), while
+    the block runs, when on."""
+    import tpudenoise_torch.models.faster_rcnn as fr
+    if not on:
+        yield
+        return
+
+    def f32(cls):
+        def build(*a, **k):
+            model = cls(*a, **{**k, 'dtype': torch.float32})
+            model.rcnn.dtype = torch.float32
+            return model
+        return build
+
+    with patched(fr, 'FasterRCNN', f32):
+        yield
+
+
+def dp_train(inp: dict, card: str, tag: str, batch: int, extra=(),
+             check: bool = True) -> dict:
+    """cli.trainval res101 on the training phase's images, DP_ITERS
+    iterations at --batch batch (and extra flags), every launch held;
+    its losses, step times and parameter hashes.  At batch 2 the model is
+    f32 (DP_LOSS_RTOL)."""
+    with f32_detector(batch > 1):
+        e, state, seen, *_ = train_cli(card, inp, 'res101', TRAIN_NOISE,
+                                       DP_ITERS, tag,
+                                       extra=['--batch', str(batch), *extra],
+                                       check=check)
+    e['step_s'] = [b['t'] - a['t'] for a, b in zip(seen, seen[1:])]
+    e['hashes'] = param_hashes(FasterRCNN('res101', num_classes=2),
+                               state.params)
+    del state
+    torch.cuda.empty_cache()
+    return e
+
+
+def rank_main(spec_path: str) -> int:
+    """One rank of phase 5g (`launch_ranks`): joins the group from
+    torchrun's environment, then the spatial filters, the all-reduce,
+    cli.test and cli.trainval with --distributed; writes its results
+    beside the spec."""
+    import os.path as osp
+
+    import torch.distributed as dist
+
+    from tpudenoise_torch.core import mesh as M
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world, backend = spec['world'], spec['backend']
+    set_matmul_precision()
+    card = card_line()
+    cuda_build.build(SOURCES)
+    dev = M.initialize_distributed(backend=backend)
+    flags = ['--distributed', '--dist-backend', backend]
+    try:
+        mesh = M.make_mesh()
+        out = dict(rank=M.rank(), device=str(dev),
+                   spatial=dp_spatial(mesh, dev, card, world),
+                   all_reduce=dp_all_reduce(dev, card, world))
+        zero_counts()
+        out['eval'] = dp_eval(spec['cli'], card, f'dp{world}', flags)
+        out['train'] = dp_train(spec['train'], card, f'dp{world}', world,
+                                flags)
+    finally:
+        dist.destroy_process_group()
+    with open(osp.join(spec['work'], f'rank{out["rank"]}.json'), 'w') as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def _sum_launches(entries) -> dict:
+    total = {}
+    for e in entries:
+        for k, v in e['launches'].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def dp_phase(card: str, cli: dict) -> dict:
+    """Phase 5g, data parallelism on the card.  References in this
+    process: cli.trainval res101 at --batch 1 and --batch 2 (DP_ITERS
+    iterations each) and cli.test over the CLI phase's 16 images.  Then
+    each world of DP_WORLDS as a group of processes (`rank_main`):
+    cli.trainval --distributed --batch <ranks>, held to the reference of
+    that batch (the world of one bit for bit: no mesh; the world of two,
+    the same global batch and fold_in keys, step 1's loss terms and the
+    later steps' RPN terms within DP_LOSS_RTOL, every frozen parameter
+    bit-equal, the ranks' parameters bit-equal); cli.test --distributed
+    --eval-batch 8, its detections matching the reference's at phase 4's
+    tolerance; the spatial
+    filters bit-equal to the stencils; one all-reduce timed.  Every
+    kernel launch of every run is held to its plain version."""
+    import pickle
+    inp = train_inputs()
+    out, info = {}, {}
+    t0 = time.perf_counter()
+    ref_train = {b: dp_train(inp, card, f'ref{b}', b, check=b == 1)
+                 for b in (1, 2)}
+    for b, e in ref_train.items():
+        out[f'5g train one process --batch {b}'] = e
+    ref_eval = dp_eval(cli, card, 'dp_ref')
+    out['5g cli.test one process'] = ref_eval
+    with open(ref_eval['detections'], 'rb') as f:
+        want = pickle.load(f)[1]
+    torch.cuda.empty_cache()
+    for world, backend in DP_WORLDS:
+        name = f'world {world} ({backend})'
+        ranks = launch_ranks(world, backend, dict(cli=cli, train=inp))
+        trains = [r['train'] for r in ranks]
+        ref = ref_train[world]
+        for r, t in enumerate(trains):
+            if t['hashes']['all'] != trains[0]['hashes']['all']:
+                raise AssertionError(f'5g {name}: rank {r}\'s parameters '
+                                     f'differ from rank 0\'s')
+            if t['hashes']['frozen'] != ref['hashes']['frozen']:
+                raise AssertionError(f'5g {name}: frozen parameters moved')
+        rels = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                 for k in DP_LOSSES}
+                for g, w in zip(trains[0]['losses'], ref['losses'])]
+        held = max([max(rels[0].values())]
+                   + [r[k] for r in rels[1:] for k in DP_RPN_LOSSES])
+        rel = max(v for r in rels for v in r.values())
+        if world == 1:
+            if (trains[0]['losses'] != ref['losses']
+                    or trains[0]['hashes'] != ref['hashes']):
+                raise AssertionError(f'5g {name}: not bit-equal to the '
+                                     f'steps without --distributed')
+        elif not held <= DP_LOSS_RTOL:
+            raise AssertionError(f'5g {name}: losses {trains[0]["losses"]} '
+                                 f'against {ref["losses"]} (rel '
+                                 f'{held:.2e})')
+        with open(ranks[0]['eval']['detections'], 'rb') as f:
+            got = pickle.load(f)[1]
+        matched, total = _match_dets(want, got)
+        if total == 0 or matched / total < 0.95:
+            raise AssertionError(f'5g {name}: {matched}/{total} detections '
+                                 f'match the one-process run\'s')
+        step = statistics.median(s for t in trains[:1] for s in t['step_s'])
+        log(f'5g {name}: cli.trainval --distributed --batch {world}, '
+            f'{DP_ITERS} iterations, losses against one process '
+            f'(--batch {world}) within {rel:.2e} relative'
+            + (' (bit-equal, parameters too)' if world == 1 else
+               f', step 1 and the later RPN terms within {held:.2e} (bound '
+               f'{DP_LOSS_RTOL}); step by step {json.dumps(rels)}; frozen '
+               f'parameters bit-equal, the ranks\' parameters bit-equal')
+            + f'; step {step * 1e3:.1f} ms (one process: '
+            f'{statistics.median(ref["step_s"]) * 1e3:.1f} ms); cli.test '
+            f'--distributed: {matched}/{total} detections match, '
+            f'{ranks[0]["eval"]["img_per_s"]:.1f} img/s (one process '
+            f'{ref_eval["img_per_s"]:.1f})'
+            + ('; two ranks share one card: a check of correctness, not '
+               'of scaling' if world > 1 else '') + f'  [{card}]')
+        out[f'5g train {name}'] = dict(
+            launches=_sum_launches(trains), losses=trains[0]['losses'],
+            loss_rel_err=rels, step_s=[t['step_s'] for t in trains],
+            held=[t['held'] for t in trains])
+        out[f'5g cli.test {name}'] = dict(
+            launches=_sum_launches(r['eval'] for r in ranks),
+            img_per_s=ranks[0]['eval']['img_per_s'],
+            matched=[matched, total], held=[r['eval']['held'] for r in ranks])
+        info[name] = dict(spatial=ranks[0]['spatial'],
+                          all_reduce=ranks[0]['all_reduce'],
+                          step_ms=step * 1e3,
+                          eval_img_per_s=ranks[0]['eval']['img_per_s'])
+    info['wall_s'] = time.perf_counter() - t0
+    log(f'phase 5g: {info["wall_s"]:.1f} s of wall time  [{card}]')
+    log(json.dumps({'5g': info}, default=str))
+    return out
+
+
 # symbols of the port's own kernels (csrc/*.cu), as the profiler names
 # them; a name that holds another comes first
 OWN_KERNELS = ('sap_median_kernel', 'gauss_blur_kernel', 'mask_kernel',
@@ -3821,6 +4238,9 @@ def main() -> int:
     # chunks left the profiler dropping kernel records in those reads
     e2e.update(slice15_phase(card, res, cli))
     done('5e fast-rng, curvelet, compute-id')
+    del res
+    e2e.update(dp_phase(card, cli))
+    done('5g data parallelism')
     # each kernel's launches, summed over the main paths that run it
     for r in rows:
         r['launches'] = sum(p['launches'].get(r['name'], 0)
@@ -3868,5 +4288,23 @@ def main() -> int:
     return 0
 
 
+def only_5g() -> int:
+    """`python3 chip_smoke.py --only-5g`: the build and phase 5g alone
+    (its inputs made as the whole run makes them), for working on it;
+    prints no result line."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    set_matmul_precision()
+    card = card_line()
+    cuda_build.build(SOURCES)
+    dp_phase(card, cli_inputs())
+    return 0
+
+
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--rank']:
+        sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:] == ['--only-5g']:
+        sys.exit(only_5g())
     sys.exit(main())

@@ -22,6 +22,7 @@ the conversions, of which the test takes every 17th):
   trip within 6, more than 3 off on under 1% (cv2's 8-bit HSV rounds
   otherwise, and neither package holds its HSV to cv2)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import ast
 import inspect
 

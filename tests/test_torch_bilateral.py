@@ -11,6 +11,7 @@ interpret mode) on such inputs; u8 inputs are held in
 test_torch_stencils.py.  The kernels themselves are held against the
 plain version on the card (test_torch_cuda.py)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ JAX generic route with `use_pallas=True`.  Bloom is selects, adds,
 multiplies and a half-even round in one fixed order, so every comparison
 is exact."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

@@ -13,6 +13,7 @@ one; the single-kind string is raster-dependent (periodic follows each
 image's valid extent), the mix string draws through the mix scan.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 

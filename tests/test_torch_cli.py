@@ -23,6 +23,7 @@ naming the GPU; `_log_det_scores` writes the events of
 the JAX package's names and builds VOC and COCO sets as it does.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import copy
 import functools
 import os

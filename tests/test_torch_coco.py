@@ -8,6 +8,7 @@ COCOeval `stats` (12 numbers) to 1e-12; `tests/test_coco.py`'s
 hand-checked evaluations on the port's API; `cache_pixels --imdb` and
 `get_imdb` on the cache."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import json
 import os
 import os.path as osp

@@ -7,6 +7,7 @@ code and torch's; a value that lands within an ulp of .5 can round the
 other way, so |diff| <= 1 on <= 0.1% of the pixels (measured 0.01% for
 BGR -> LAB and 0 for LAB -> BGR over 20000 pixels)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import numpy as np
 import pytest

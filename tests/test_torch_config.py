@@ -5,6 +5,7 @@ subset; `cfg_from_file` and `cfg_from_list` accept and refuse what the
 JAX package's do; `save_params_npz` and `merge_pretrained` agree with
 the JAX package's layout and counts."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import contextlib
 import glob
 import io

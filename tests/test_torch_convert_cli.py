@@ -9,6 +9,7 @@ package's keys in the same order and bit-equal arrays of the same dtype;
 the real-shape res50 file then loads into the port's detector and into
 the JAX package.  Each refused source raises naming itself."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -25,6 +25,7 @@ Bounds, each with its reason (measured values in brackets):
   on the same pixels as a PNG [6.0e-4].
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 import os.path as osp
 

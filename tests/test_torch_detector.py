@@ -11,6 +11,7 @@ rounding boundary moves a logit by one bf16 ulp: cls_prob is held to
 must have a port twin within 1e-2 px (a marginal NMS keep may swap
 order)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

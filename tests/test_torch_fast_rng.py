@@ -26,6 +26,7 @@ Bounds, each with its reason (measured values in brackets):
   passes it to them.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

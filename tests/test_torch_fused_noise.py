@@ -8,6 +8,7 @@ torch; a one-ulp change can move a truncated u8 by one, so the bound is
 max |diff| <= 1 on at most 1% of the pixels (the measured share is
 printed; it is usually 0)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

@@ -18,6 +18,7 @@ Bounds, each with its reason (measured values in brackets):
   XLA in its own: <= 1 on < 1e-3 of the elements [<= 6.8e-4].
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

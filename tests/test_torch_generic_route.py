@@ -16,6 +16,7 @@ Bounds, each with its reason (measured values in brackets):
   [6e-8, the erf_inv's last ulp].
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 import os.path as osp
 import re

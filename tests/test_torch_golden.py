@@ -14,6 +14,7 @@ rois are a prefix and as many as the golden's; rois within 2e-3,
 cls_prob within 1e-4 (the cls/bbox heads compute in bf16 in both
 packages), bbox_pred within 2e-3."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import torch
 

@@ -8,6 +8,7 @@ config, its cfg reader and the CLIs also import, apply the repo's cfg
 files and answer `--help` with yaml, cv2 and PIL refused as well (the
 GPU machine has none of them)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os
 import os.path as osp
 import subprocess
@@ -97,7 +98,10 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.benchmarks.profile_curvelet',
             'tpudenoise_torch.models.backbones.mobilenet',
             'tpudenoise_torch.noise.automold',
-            'tpudenoise_torch.cli.convert'} <= names
+            'tpudenoise_torch.cli.convert',
+            'tpudenoise_torch.core.mesh',
+            'tpudenoise_torch.parallel.dp',
+            'tpudenoise_torch.parallel.spatial'} <= names
 
 
 def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml():

@@ -33,6 +33,7 @@ checked on the CPU in the kernels' operation order.
   among them.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import numpy as np

@@ -9,6 +9,7 @@ module must see the same calls.  The port's `trace` writes a Chrome trace
 that holds the regions `annotate` names.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import glob
 import json
 import sys

@@ -22,6 +22,7 @@ Tolerances, each with its reason:
 * after the bilateral: |diff| <= 1 on <= 1% of the elements.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

@@ -28,6 +28,7 @@ against the JAX package's, on the CPU.
   generic route through the scan, against JAX's XLA route.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 

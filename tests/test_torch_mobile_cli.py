@@ -22,6 +22,7 @@ other orders) read 29.76 and 30.50 on the same features).  The training
 step: finite losses, the frozen layers bit-equal to the loaded weights,
 others moved."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os.path as osp
 import pickle
 
@@ -156,8 +157,8 @@ def test_cli_trainval_mobile_step(mobile_env, cli_env, monkeypatch):
     inits = []
     real = solver_mod.make_train_step
 
-    def spy(model, cfg):
-        init, step = real(model, cfg)
+    def spy(model, cfg, **kw):
+        init, step = real(model, cfg, **kw)
 
         def init_state(*a):
             st = init(*a)

@@ -27,6 +27,7 @@ Bounds, each with its reason:
   tests/test_torch_twonn.py holds vgg16's and res50's.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

@@ -3,6 +3,7 @@ for word (integer output, so exact), keep sets equal to the JAX package's
 py_cpu_nms oracle, and proposal_layer equal to JAX's on identical inputs, tied
 scores included (keep indices exact, rois to 1e-4 px)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import importlib
 
 import jax.numpy as jnp

@@ -21,6 +21,7 @@ and its fixture writer against the JAX package's, on the CPU.
   finished snapshot and trains no step.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import importlib.util
 import os
 import os.path as osp
@@ -173,10 +174,10 @@ def test_grid_runs_on_the_cpu(tmp_path, monkeypatch):
     seen = {'steps': 0, 'cfg': []}
     make = solver_mod.make_train_step
 
-    def counting(model, cfg):
+    def counting(model, cfg, **kw):
         seen['cfg'].append(cfg)
         seen['model'] = model
-        init, step = make(model, cfg)
+        init, step = make(model, cfg, **kw)
 
         def step_fn(*a, **k):
             seen['steps'] += 1

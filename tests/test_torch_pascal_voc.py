@@ -5,6 +5,7 @@ marked difficult): gt roidbs with and without `use_diff`, image paths,
 results files and APs (IoU 0.5, the VOC07 11-point metric for 2007 only)
 to 1e-12; flips; `cache_pixels --imdb` and `get_imdb` on the cache."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os
 import os.path as osp
 

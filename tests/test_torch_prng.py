@@ -1,6 +1,7 @@
 """The port's numpy threefry key algebra is bit-equal to jax.random
 (jax 0.9, jax_threefry_partitionable on, as bench.py sets it)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import numpy as np
 import pytest

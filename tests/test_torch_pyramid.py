@@ -15,6 +15,7 @@ and a two-scale `test_net_batched` against the JAX package's, on the CPU.
   have a port twin within 0.5, counts within one.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ on at least 99% of its entries and to 1e-3 on all, `roi_mask` exactly, and
 each JAX roi must have a port twin within 1e-2 px.  res101 and res152 are
 held in keys and shapes against `jax.eval_shape` of the JAX init."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ CPU.
   package (same XML, checked in `test_torch_noise_grid.py`).
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os.path as osp
 import pickle
 

@@ -10,6 +10,7 @@ tile heights, with h not a multiple of the tile height and the raster's
 pad lanes present (w3 = 120, w3p = 128), and at the walk's edge shapes
 (h <= 3, w3 = 3)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import importlib.util
 import os.path as osp
 

@@ -18,6 +18,7 @@ Also: the port imports neither jax, flax nor the JAX package (checked in a
 subprocess where all three are blocked, running six noise plans through
 detect_chunk)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 import os
 import os.path as osp
@@ -66,13 +67,14 @@ _VGG16_INIT = {}
 
 
 def match_row(env, noise, monkeypatch, eval_batch=3, bucket=(160, 224),
-              port_imdb=None, loop='test_net_batched'):
+              port_imdb=None, loop='test_net_batched', harness_kw=None):
     """Both packages' test_net_batched (or, with loop='test_net', their
     one-image loops) on `noise`: the count of JAX detections with a port
     twin within 0.5 px (and score), and the total; asserts the count per
     (class, image) differs by at most one.  port_imdb: the port's
     dataset, made from the port's config (default: the JAX package's
-    rrData, read through cv2)."""
+    rrData, read through cv2); harness_kw: more keywords for both
+    packages' loops."""
     import jax
     import jax.numpy as jnp
     import tpudenoise.denoise.pallas_bilateral as pbl
@@ -121,13 +123,14 @@ def match_row(env, noise, monkeypatch, eval_batch=3, bucket=(160, 224),
     d1 = rrData('test', '2021', config=jc)
     d1.competition_mode(True)
     batched = {} if loop == 'test_net' else {'eval_batch': eval_batch}
+    harness_kw = harness_kw or {}
     getattr(jharness, loop)(jm, jp, d1, 'jax_' + tag, noise, config=jc,
-                            bucket=bucket, **batched,
+                            bucket=bucket, **batched, **harness_kw,
                             **({'mesh': None} if batched else {}))
     d2 = (port_imdb or (lambda c: rrData('test', '2021', config=jc)))(tc)
     d2.competition_mode(True)
     getattr(harness, loop)(tm, params, d2, 'torch_' + tag, noise,
-                           config=tc, bucket=bucket, **batched)
+                           config=tc, bucket=bucket, **batched, **harness_kw)
 
     def load(name):
         path = osp.join(jc.ROOT_DIR, 'output', jc.EXP_DIR, d1.name, name,

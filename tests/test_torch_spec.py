@@ -3,6 +3,7 @@ against the JAX package's, field by field: every noise string of
 RESULTS.md, each mix key, `curvelet` and an unknown string, in TEST and
 TRAIN mode, strict and not."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os.path as osp
 import re
 

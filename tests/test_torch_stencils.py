@@ -8,6 +8,7 @@ against both `stencils.bilateral` and the Pallas `bilateral_pallas` in
 interpret mode (the same f32 operations in the same order; its CUDA
 kernel is held against the same plain version on the card)."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

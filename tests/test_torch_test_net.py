@@ -14,6 +14,8 @@
   it.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+import os
 import os.path as osp
 import pickle
 
@@ -93,12 +95,23 @@ def test_test_net_matches_test_net_batched(tmp_path):
 
 def test_test_net_refuses_what_is_not_ported(tmp_path, monkeypatch,
                                              capsys):
-    """The mesh and host prep still raise.  compute_id and fast_rng run:
-    test_net over 10 numpy images with both (their parity with the JAX
-    package: tests/test_torch_twonn.py, tests/test_torch_fast_rng.py)
-    builds the counter-hash route and logs a finite, positive TwoNN ID
-    per probe."""
+    """compute_id and fast_rng run: test_net over 10 numpy images with both
+    (their parity with the JAX package: tests/test_torch_twonn.py,
+    tests/test_torch_fast_rng.py) builds the counter-hash route and logs
+    a finite, positive TwoNN ID per probe.  The mesh and host prep, which
+    this test once held to raise, run too: test_net_batched over the same
+    images with mesh=None, with the one-rank mesh of a process group of
+    one (gloo, a file rendezvous), and with device_prep=False (host prep;
+    at scale 1 cv2's resize is the identity, as the device prep is):
+    the same detections.pkl, bit for bit (the world of two:
+    tests/test_torch_dp_eval.py; host prep against the JAX package:
+    tests/test_torch_host_prep.py)."""
+    import pickle
+
+    import torch.distributed as dist
+
     from tpudenoise_torch.analysis.twonn import PROBES
+    from tpudenoise_torch.core import mesh as M
     from tpudenoise_torch.core.config import default_config
     from tpudenoise_torch.eval import harness
     from tpudenoise_torch.eval.harness import test_net, test_net_batched
@@ -124,7 +137,24 @@ def test_test_net_refuses_what_is_not_ported(tmp_path, monkeypatch,
     assert 'backend: cuda:generic+fast_rng' in capsys.readouterr().out
     ids = [rec.logged[f'twonn_id/{p}'] for p in PROBES['res50'] + ['head']]
     assert np.all(np.isfinite(ids)) and min(ids) > 0
-    for kw, item in (({'mesh': object()}, 'item 16'),
-                     ({'device_prep': False}, 'item 6B')):
-        with pytest.raises(NotImplementedError, match=item):
-            test_net_batched(None, None, None, 'w', 'original', **kw)
+
+    def dets(name, **kw):
+        test_net_batched(model, params, _Imdb(paths), name,
+                         'sap_median_var0.4', eval_batch=4, config=cfg,
+                         **kw)
+        path = os.path.join(tmp_path, 'output', 'refuse', _Imdb(paths).name,
+                            name, 'detections.pkl')
+        with open(path, 'rb') as f:
+            return pickle.load(f)
+
+    want = dets('one', mesh=None)
+    M.initialize_distributed(None, 1, 0, device='cpu',
+                             init_method='file://' + str(tmp_path / 'rdv'))
+    try:
+        got = {'mesh': dets('mesh', mesh=M.make_mesh())}
+    finally:
+        dist.destroy_process_group()
+    got['host'] = dets('host', mesh=None, device_prep=False)
+    for g in got.values():
+        for a, b in zip(want[1], g[1]):
+            np.testing.assert_array_equal(a, b)

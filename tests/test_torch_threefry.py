@@ -15,6 +15,7 @@ Bounds, each with its reason:
   98% bit-equal, >= 99.8% within 2 ulp and <= 3 ulp.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

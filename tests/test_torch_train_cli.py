@@ -6,10 +6,12 @@ with --weight), two iterations on `tests/fixtures.make_rrdata_fixture`
 through the masked noise.  Each iteration's logged losses (metrics.jsonl)
 within LOSS_RTOL of the JAX CLI's: both compute in bf16 (the CLIs' model
 dtype), whose convolutions and products torch and XLA round in other
-orders; measured 2.5e-4 at most.  Also: --distributed raises naming its
-ROADMAP item, --fast-rng trains, and --device cuda exits without a GPU.
+orders; measured 2.5e-4 at most.  Also: --distributed at a world of one
+is the plain CLI bit for bit, --fast-rng trains, and --device cuda exits
+without a GPU.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import copy
 import json
 import os.path as osp
@@ -100,20 +102,36 @@ def test_trainval_cli_beside_jax(env):
 
 @pytest.mark.parametrize('flag,item', [('--fast-rng', 'item 8'),
                                        ('--distributed', 'item 16')])
-def test_unported_flags_raise(flag, item, env, capsys):
-    """--distributed raises naming its ROADMAP item.  --fast-rng (item 8)
-    is ported: one iteration on poisson through the counter-hash route,
+def test_unported_flags_raise(flag, item, env, capsys, tmp_path):
+    """The flags of ROADMAP items 8 and 16, both ported, each train one
+    iteration.  --fast-rng: poisson through the counter-hash route,
     finite losses (its noise against the JAX package's:
-    tests/test_torch_fast_rng.py)."""
+    tests/test_torch_fast_rng.py).  --distributed: a process group of
+    one (gloo, a file rendezvous) has no mesh, so the iteration is the
+    plain CLI's bit for bit: its logged losses and its snapshot's
+    parameters (the world of two: tests/test_torch_dp_train.py)."""
     import tpudenoise_torch.core.config as tconfig
     from tpudenoise_torch.cli import trainval
-    if flag == '--distributed':
-        with pytest.raises(NotImplementedError, match=item):
-            trainval.main(['--device', 'cpu', flag])
-        return
     root, npz = env
     argv = _argv(root, npz, 'fast_rng')
     argv[argv.index('--iters') + 1] = '1'
+    if flag == '--distributed':
+        runs = {}
+        for tag, extra in (('plain', []), ('dist1', [
+                flag, '--dist-init-method',
+                'file://' + str(tmp_path / 'rdv')])):
+            argv[argv.index('--tag') + 1] = tag
+            state = _run(tconfig, trainval.main,
+                         ['--device', 'cpu'] + extra + argv)
+            assert state.step == 1
+            runs[tag] = state
+        names = ('rpn_cross_entropy', 'rpn_loss_box', 'cross_entropy',
+                 'loss_box', 'total_loss')
+        got, want = _losses(root, 'dist1')[1], _losses(root, 'plain')[1]
+        assert [got[k] for k in names] == [want[k] for k in names]
+        for k, v in runs['plain'].params.items():
+            assert torch.equal(runs['dist1'].params[k], v), k
+        return
     state = _run(tconfig, trainval.main, ['--device', 'cpu', flag,
                                           '--noise', 'poisson'] + argv)
     assert state.step == 1

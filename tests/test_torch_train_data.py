@@ -11,6 +11,7 @@
 * `PrefetchLoader`: the consumed cursor state hands off exactly.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os.path as osp
 
 import numpy as np

@@ -13,6 +13,7 @@ keyed bit for bit wherever the JAX package's does.  The mix routes'
 masked (the mix scan) matches the JAX package's within the same bounds.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

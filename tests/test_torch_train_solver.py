@@ -11,6 +11,7 @@ res50 in f32 (a snapshot holds params and momentum: 0.2 GB for res50,
 1.1 GB for vgg16; bf16 matmuls are slow on the CPU); the snapshot
 directories are removed at the end."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os
 import os.path as osp
 import shutil
@@ -47,6 +48,10 @@ def env(scratch):
     cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.RPN_BATCHSIZE = 16, 32
     cfg.TRAIN.SNAPSHOT_ITERS, cfg.TRAIN.SNAPSHOT_KEPT = 2, 1
     cfg.TRAIN.DISPLAY = 1
+    # no summary on the host clock's say-so: its validation step draws
+    # keys, so a run slow enough to reach SUMMARY_INTERVAL (180 s) in one
+    # run and not the other took other keys after it
+    cfg.TRAIN.SUMMARY_INTERVAL = 10 ** 9
     cfg.TRAIN.LEARNING_RATE = 1e-4
     cfg.ANCHOR_SCALES = [2, 4, 8]
     d = rrData('train', config=cfg)

@@ -38,6 +38,7 @@ Bounds, each stated with its reason:
   doubled), plus 2 ulp of its largest |p| (the rounding of p + update).
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import functools
 
 import jax

@@ -7,6 +7,7 @@ within 1e-6 relative; the dropout keep mask equal to flax's bit for bit;
 the schedule's rates equal to optax's as f32.
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ Bounds, each with its reason (measured values in brackets):
   feature's 1e-6 becomes ~1e-4 in log(mu) [6.0e-4].
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

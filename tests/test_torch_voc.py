@@ -6,6 +6,7 @@ cached `.npy` pixels equal cv2/PIL on the JPEG; `test_net_batched` on the
 cached pixels equals the same loop on the JPEGs, with the port's own
 rrData."""
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import os.path as osp
 import pickle
 import shutil

@@ -12,6 +12,7 @@ Bounds, each with its reason:
   the add).
 """
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,8 +7,18 @@ same flags and defaults, a `.npz` of weights, and the eval harness.
         [--device cuda|cpu] [--profile DIR] [--set KEY VALUE ...]
 
 `--eval-batch 1` (the default) runs `test_net`, the one-image loop, and
-larger batches `test_net_batched`; `--set TEST.SCALES "(480, 600)"` runs a
-test pyramid; `voc_*` and `coco_*` datasets come in many image shapes,
+larger batches `test_net_batched`; `--host-prep` runs `test_net_batched`
+(at any `--eval-batch`) with the JAX package's host prep, cv2's resize,
+which needs cv2: a CPU parity path (the GPU machine has no cv2, and there
+it fails with an ImportError naming cv2).  `--distributed` joins the
+process group of torchrun's environment and splits each chunk over its
+ranks (rank 0 writes detections.pkl and evaluates):
+
+    torchrun --nproc-per-node N -m tpudenoise_torch.cli.test \
+        --distributed --eval-batch 8 ...
+
+`--dist-backend gloo` lets ranks share a GPU.  `--set TEST.SCALES
+"(480, 600)"` runs a test pyramid; `voc_*` and `coco_*` datasets come in many image shapes,
 which both loops take through noise buckets.  `--fast-rng` draws the
 noise from the counter hash; `--compute-id` reports the backbone's TwoNN
 intrinsic dimension per probe layer after the loop.  `--device cuda` (the
@@ -57,13 +67,21 @@ def parse_args(argv=None):
                    help='counter-hash draws for every generator of the '
                         'generic and bilateral noise routes')
     p.add_argument('--host-prep', action='store_true',
-                   help='cv2 resize on the host (not ported yet: ROADMAP '
-                        'Queue 1 item 6B, host prep)')
+                   help='cv2 resize on the host instead of the device '
+                        'prep (the batched harness; needs cv2)')
     p.add_argument('--eval-batch', type=int, default=1,
                    help='images a chunk of the batched harness; 1 runs '
                         'test_net, the one-image loop')
     p.add_argument('--distributed', action='store_true',
-                   help='multi-host eval (not ported: Queue 1 item 16)')
+                   help='join the process group of torchrun\'s environment '
+                        'and split each chunk over its ranks')
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='the process group\'s backend (default nccl on '
+                        'cuda, gloo on the CPU; gloo lets ranks share a '
+                        'GPU)')
+    p.add_argument('--dist-init-method', default=None, metavar='URL',
+                   help='the process group\'s rendezvous (default env://, '
+                        'torchrun\'s; file:///path needs no port)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                    help='where the eval runs (default cuda; no fallback)')
     p.add_argument('--set', dest='set_cfgs', nargs=argparse.REMAINDER,
@@ -94,20 +112,19 @@ def load_params(model, model_path, net, generator, image_shape=(608, 1024)):
         model_path
 
 
-def refuse_unported(args):
-    for flag, what, item in (
-            ('distributed', '--distributed (multi-device eval)', '16'),
-            ('host_prep', '--host-prep (cv2 resize on the host)', '6B')):
-        if getattr(args, flag, False):
-            raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
-                                      f'Queue 1 item {item})')
-
-
 def main(argv=None):
-    """Runs the eval; returns the APs."""
+    """Runs the eval; returns the APs (None on ranks other than 0)."""
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
+    if not args.distributed:
+        return _main(args, device)
+    from tpudenoise_torch.core.mesh import process_group
+    with process_group(args.dist_init_method, args.device,
+                       args.dist_backend) as device:
+        return _main(args, device)
+
+
+def _main(args, device):
     import torch
     from tpudenoise_torch.core.config import cfg, cfg_from_file, cfg_from_list
     from tpudenoise_torch.data.factory import get_imdb
@@ -136,12 +153,13 @@ def main(argv=None):
     params = {k: v.to(device) for k, v in params.items()}
     weights_name = (args.tag or tag or 'default').replace('/', '_')
     with trace(args.profile):
-        if args.eval_batch > 1:
+        if args.eval_batch > 1 or args.host_prep:
             return test_net_batched(model, params, imdb_obj, weights_name,
                                     args.noise, eval_batch=args.eval_batch,
                                     max_per_image=args.max_per_image,
                                     config=cfg, strict_ref=args.strict_ref,
                                     compute_id=args.compute_id,
+                                    device_prep=not args.host_prep,
                                     fast_rng=args.fast_rng)
         return test_net(model, params, imdb_obj, weights_name, args.noise,
                         max_per_image=args.max_per_image, config=cfg,

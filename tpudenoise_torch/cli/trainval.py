@@ -14,9 +14,17 @@ seeded init (`models.convert.merge_pretrained`).  Snapshots go to
 written with `models.convert.save_params_npz` load in the JAX package.
 On a machine without cv2, the datasets' pixels come from `python -m
 tpudenoise_torch.data.cache_pixels --image-set trainval` (and the
-validation set's).  `--fast-rng` draws the noise from the counter hash;
-`--distributed` raises NotImplementedError naming ROADMAP Queue 1 item
-16.
+validation set's).  `--fast-rng` draws the noise from the counter hash.
+
+`--distributed` joins a process group from torchrun's environment (one
+process a GPU, NCCL; `core.mesh.initialize_distributed`) and trains
+data-parallel when `--batch` divides over the ranks:
+
+    torchrun --nproc-per-node N -m tpudenoise_torch.cli.trainval \
+        --distributed --batch N ...
+
+`--dist-backend gloo` lets ranks share a GPU (NCCL does not), a check of
+correctness rather than of speed; on the CPU gloo is the default.
 """
 
 from __future__ import annotations
@@ -58,7 +66,15 @@ def parse_args(argv=None):
                    help='counter-hash draws for every generator of the '
                         'generic and bilateral noise routes')
     p.add_argument('--distributed', action='store_true',
-                   help='multi-host training (not ported: Queue 1 item 16)')
+                   help='join the process group of torchrun\'s environment '
+                        'and train data-parallel over its ranks')
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='the process group\'s backend (default nccl on '
+                        'cuda, gloo on the CPU; gloo lets ranks share a '
+                        'GPU)')
+    p.add_argument('--dist-init-method', default=None, metavar='URL',
+                   help='the process group\'s rendezvous (default env://, '
+                        'torchrun\'s; file:///path needs no port)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                    help='where training runs (default cuda; no fallback)')
     p.add_argument('--set', dest='set_cfgs', nargs=argparse.REMAINDER,
@@ -69,10 +85,16 @@ def parse_args(argv=None):
 def main(argv=None):
     """Trains; returns the final TrainState."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError('--distributed (multi-host training) is '
-                                  'not ported yet (ROADMAP Queue 1 item 16)')
     device = resolve_device(args.device)
+    if not args.distributed:
+        return _main(args, device)
+    from tpudenoise_torch.core.mesh import process_group
+    with process_group(args.dist_init_method, args.device,
+                       args.dist_backend) as device:
+        return _main(args, device)
+
+
+def _main(args, device):
     from tpudenoise_torch.core.config import (cfg, cfg_from_file,
                                               cfg_from_list, get_output_dir,
                                               get_output_tb_dir)

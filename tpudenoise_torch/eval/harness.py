@@ -4,9 +4,12 @@ One eval chunk is `detect_chunk`: per-image `fold_in` keys -> fused noise
 kernel -> per test scale, device prep (mean-subtract, bilinear rescale,
 bucket pad) and the batched detector forward (packed NMS kernel inside)
 -> one per-class NMS (over the union of the scales' candidates for a
-TEST.SCALES pyramid).  `test_net_batched` runs chunks over a dataset on
-one device with device prep, datasets of several image shapes (VOC, COCO)
-through per-orientation noise buckets and the bucketed (masked) noise.
+TEST.SCALES pyramid).  `test_net_batched` runs chunks over a dataset
+with device prep (or, with device_prep=False, the JAX package's cv2
+resize on the host: a CPU parity path, since the GPU machine has no cv2),
+on one device or split over the ranks of a process group (`core.mesh`),
+datasets of several image shapes (VOC, COCO) through per-orientation
+noise buckets and the bucketed (masked) noise.
 `test_net` is the reference's one-image loop.  With `compute_id` both
 loops also pool the backbone's activations at the TwoNN probe points of
 each image's detector input (`analysis/twonn.py`; one more head forward a
@@ -24,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tpudenoise_torch.core import mesh as M
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import get_output_dir
 from tpudenoise_torch.noise.pipeline import make_pipeline
@@ -31,7 +35,8 @@ from tpudenoise_torch.ops.boxes import (bbox_transform_inv,
                                         clip_boxes_lower_only)
 from tpudenoise_torch.ops.nms import NEG_INF, nms_fixpoint
 from tpudenoise_torch.ops.resize import prep_on_device
-from tpudenoise_torch.utils.blob import derive_bucket, rescale_geometry
+from tpudenoise_torch.utils.blob import (derive_bucket, pad_to_bucket,
+                                         prep_im_for_blob, rescale_geometry)
 from tpudenoise_torch.utils.image_io import image_hw, read_bgr
 from tpudenoise_torch.utils.logging import get_metrics_logger
 from tpudenoise_torch.utils.timer import Timer
@@ -182,19 +187,20 @@ def chunk_levels(shapes, t_sizes, m_size: int, bucket, device) -> list:
 
 def detect_noisy(model, params, noisy: torch.Tensor, levels,
                  thresh: float = 0.0, max_per_image: int = 100,
-                 on_stage=None, probe=None):
+                 on_stage=None, probe=None, prep=None):
     """detect_chunk's stages after the noise: for each level (geom,
     bucket) of levels (`chunk_levels`; one per test scale), device prep
-    of the noisy (B, H, W, 3) frames into that level's bucket and the
-    forward; then `postprocess_detections_pyramid` over the levels (for
-    one level, `postprocess_detections`).  on_stage as in detect_chunk
-    ('prep' and 'forward' once a level, then 'postprocess'); probe(imgs),
-    when given, receives the first level's prepped batch (the TwoNN
-    probes)."""
+    of the noisy (B, H, W, 3) frames into that level's bucket (or
+    prep(noisy, level index), when given) and the forward; then
+    `postprocess_detections_pyramid` over the levels (for one level,
+    `postprocess_detections`).  on_stage as in detect_chunk ('prep' and
+    'forward' once a level, then 'postprocess'); probe(imgs), when given,
+    receives the first level's prepped batch (the TwoNN probes)."""
     mark = on_stage or (lambda name: None)
     outs = []
-    for geom, bucket in levels:
-        imgs = prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
+    for li, (geom, bucket) in enumerate(levels):
+        imgs = (prep_on_device(noisy, geom, model.cfg.PIXEL_MEANS, bucket)
+                if prep is None else prep(noisy, li))
         mark('prep')
         if probe is not None and not outs:
             probe(imgs)
@@ -215,7 +221,8 @@ def detect_noisy(model, params, noisy: torch.Tensor, levels,
 
 def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor, levels,
                  noise_fn, hw=None, thresh: float = 0.0,
-                 max_per_image: int = 100, on_stage=None, probe=None):
+                 max_per_image: int = 100, on_stage=None, probe=None,
+                 prep=None):
     """One eval chunk, all on the images' device: `noise_chunk`, then
     `detect_noisy`.
 
@@ -226,18 +233,30 @@ def detect_chunk(model, params, key, idx, raw_u8: torch.Tensor, levels,
     `make_pipeline`; hw as `noise_chunk` (the frames edge-padded
     canvases).  on_stage(name), when given, is called after each of the
     stages 'noise', 'prep', 'forward' and 'postprocess' has been
-    enqueued; probe as in `detect_noisy`.  Returns per-class boxes,
+    enqueued; probe and prep as in `detect_noisy`.  Returns per-class boxes,
     scores and mask, (B, C-1, max_per_image, ...).
     """
     noisy = noise_chunk(key, idx, raw_u8, noise_fn, hw)
     if on_stage:
         on_stage('noise')
     return detect_noisy(model, params, noisy, levels, thresh,
-                        max_per_image, on_stage, probe)
+                        max_per_image, on_stage, probe, prep)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP {item})')
+def host_prep(noisy: torch.Tensor, shapes, t_size: int, m_size: int,
+              bucket, pixel_means) -> torch.Tensor:
+    """The JAX package's host prep of a noisy chunk (B, H, W, 3) on one
+    test scale: each image cropped to its raw (h, w) of shapes, then
+    `utils.blob.prep_im_for_blob` (mean subtraction and cv2's bilinear
+    resize, on the host) and a zero pad to bucket; back on noisy's
+    device.  Needs cv2 (ImportError without it)."""
+    means = np.asarray(pixel_means, np.float32).reshape(3)
+    frames = noisy.cpu().numpy()
+    out = []
+    for frame, (h, w) in zip(frames, shapes):
+        im, _ = prep_im_for_blob(frame[:h, :w], means, t_size, m_size)
+        out.append(pad_to_bucket(im, bucket)[0])
+    return torch.from_numpy(np.stack(out)).to(noisy.device)
 
 
 def _collect(all_boxes, i, bx, sc, mk, max_per_image: int):
@@ -255,14 +274,6 @@ def _collect(all_boxes, i, bx, sc, mk, max_per_image: int):
             _log_det_scores(sc[cls - 1][mk[cls - 1]][:, None], i)
 
 
-def _refuse(mesh=None, device_prep: bool = True):
-    if mesh is not None:
-        _not_ported('the device mesh', 'Queue 1 item 16')
-    if not device_prep:
-        _not_ported('host prep (device_prep=False: a cv2 resize on the '
-                    'host)', 'Queue 1 item 6B')
-
-
 class _Probes:
     """The compute_id features: per probe point, one pooled row per
     image, in image order (`analysis.twonn.make_probe_fn` over each
@@ -274,13 +285,18 @@ class _Probes:
         self.params, self.t_size, self.m_size = params, t_size, m_size
         self.feats = {}
 
-    def hook(self, shapes, n_real: int):
-        """probe(imgs) for detect_chunk, shapes the chunk's raw (h, w)."""
+    def hook(self, shapes, n_real: int, gather=None):
+        """probe(imgs) for detect_chunk, shapes the raw (h, w) of imgs'
+        images; gather, when given, joins every rank's rows of the
+        features (the chunk's n_real images are the joined rows')."""
         hw = [rescale_geometry(h, w, self.t_size, self.m_size)[1:]
               for h, w in shapes]
 
         def probe(imgs):
-            for p, v in self.fn(self.params, imgs, hw).items():
+            feats = self.fn(self.params, imgs, hw)
+            if gather is not None:
+                feats = gather(feats)
+            for p, v in feats.items():
                 self.feats.setdefault(p, []).extend(
                     v[:n_real].cpu().numpy())
         return probe
@@ -295,11 +311,11 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
                      noise: str, eval_batch: int = 8,
                      max_per_image: int = 100, thresh: float = 0.0,
                      config=None, bucket=None, strict_ref: bool = False,
-                     compute_id: bool = False, mesh=None,
+                     compute_id: bool = False, mesh='auto',
                      device_prep: bool = True, fast_rng: bool = False):
     """Batched evaluation over an imdb-protocol object (`num_images`,
     `num_classes`, `image_path_at`, `name`, `evaluate_detections`) on the
-    device of the model's parameters, with device prep.
+    device of the model's parameters.
 
     Images are grouped by raw shape when the dataset has one, else by
     per-orientation noise bucket (`derive_noise_buckets`): each image is
@@ -307,17 +323,35 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
     with the valid extents, so at most two noise shapes run.  Each group
     runs in chunks of `eval_batch`, a partial chunk padded with its last
     index (those results are dropped).  Per chunk: the noise once, then
-    per scale of TEST.SCALES device prep and the forward, and the
-    per-class NMS (over the union of the scales' candidates for a
-    pyramid): `detect_chunk`.  A worker thread reads chunk k + 1 while
-    chunk k runs.
+    per scale of TEST.SCALES the prep and the forward, and the per-class
+    NMS (over the union of the scales' candidates for a pyramid):
+    `detect_chunk`.  A worker thread reads chunk k + 1 while chunk k
+    runs.
+
+    device_prep=False preps on the host as the JAX package's
+    `device_prep=False` does (`host_prep`: cv2's resize; the noise stays
+    on the device).  mesh='auto' takes `core.mesh.production_mesh`: with
+    a process group of several ranks that divide eval_batch, each rank
+    reads and runs its rows of every chunk (the per-image fold_in keys
+    make its noise the single device's), and the detections (and the
+    compute_id features) are gathered; rank 0 writes detections.pkl and
+    evaluates, the other ranks return None.  mesh=None runs on one
+    device; a DeviceMesh with a 'data' axis is used as given.
     Images are read through `utils.image_io`: `.npy` pixels need neither
     cv2 nor PIL.  Writes detections.pkl and returns
     imdb_obj.evaluate_detections(...)."""
-    _refuse(mesh, device_prep)
     C = config or model.cfg
     set_matmul_precision()
     device = next(model.parameters()).device
+    if mesh == 'auto':
+        mesh = M.production_mesh(C, eval_batch)
+    rows = slice(0, eval_batch)
+    gather = None
+    if mesh is not None:
+        rows = M.batch_rows(mesh, eval_batch)
+        gather = lambda tree: M.gather_batch(mesh, tree)
+        print(f'evaluating on a {M.axis_size(mesh)}-rank mesh (rows '
+              f'{rows.start}..{rows.stop - 1} of each chunk here)')
     num_images, num_classes = imdb_obj.num_images, imdb_obj.num_classes
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(num_classes)]
@@ -350,10 +384,16 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
                            len(chunk)))
 
     def load(nhw, chunk):
-        ims = [read_bgr(imdb_obj.image_path_at(i)) for i in chunk]
+        ims = [read_bgr(imdb_obj.image_path_at(i)) for i in chunk[rows]]
         if noise_buckets:
             ims = [_pad_raw_to_bucket(im, nhw) for im in ims]
         return np.stack(ims)
+
+    def host_prep_fn(shapes, levels_):
+        def prep(noisy, li):
+            return host_prep(noisy, shapes, t_sizes[li], m_size,
+                             levels_[li][1], C.PIXEL_MEANS)
+        return prep
 
     timers = {'im_detect': Timer(), 'misc': Timer()}
     # the levels of each distinct chunk of shapes, built once
@@ -366,15 +406,19 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
             raw = torch.from_numpy(nxt.result()).to(device)
             if ci + 1 < len(chunks):
                 nxt = ex.submit(load, *chunks[ci + 1][:2])
-            shapes = tuple(raw_shapes[i] for i in chunk)
+            mine = chunk[rows]
+            shapes = tuple(raw_shapes[i] for i in mine)
             if shapes not in levels:
                 levels[shapes] = chunk_levels(shapes, t_sizes, m_size,
                                               bucket, device)
-            res = detect_chunk(model, params, key, chunk, raw,
-                               levels[shapes], noise_fn,
-                               shapes if noise_buckets else None, thresh,
-                               max_per_image, probe=probes and probes.hook(
-                                   shapes, n_real))
+            res = detect_chunk(
+                model, params, key, mine, raw, levels[shapes], noise_fn,
+                shapes if noise_buckets else None, thresh, max_per_image,
+                probe=probes and probes.hook(shapes, n_real, gather),
+                prep=None if device_prep else host_prep_fn(
+                    shapes, levels[shapes]))
+            if gather is not None:
+                res = gather(res)
             bx, sc, mk = (t.cpu().numpy() for t in res)
             timers['im_detect'].toc()
             timers['misc'].tic()
@@ -386,10 +430,8 @@ def test_net_batched(model, params, imdb_obj, weights_filename: str,
                   f'{timers["im_detect"].average_time:.3f}s/chunk '
                   f'{timers["misc"].average_time:.3f}s')
 
-    with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
-        pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    _finish_eval(output_dir, probes and probes.feats)
-    return imdb_obj.evaluate_detections(all_boxes, output_dir)
+    return _write_and_evaluate(imdb_obj, all_boxes, output_dir,
+                               probes and probes.feats)
 
 
 def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
@@ -461,9 +503,18 @@ def test_net(model, params, imdb_obj, weights_filename: str, noise: str,
                   f'{timers["im_detect"].average_time:.3f}s '
                   f'{timers["misc"].average_time:.3f}s')
 
+    return _write_and_evaluate(imdb_obj, all_boxes, output_dir,
+                               probes and probes.feats)
+
+
+def _write_and_evaluate(imdb_obj, all_boxes, output_dir, feats):
+    """detections.pkl, the TwoNN IDs and the evaluation, on rank 0 (the
+    only process without a process group); None on the other ranks."""
+    if M.rank() != 0:
+        return None
     with open(os.path.join(output_dir, 'detections.pkl'), 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    _finish_eval(output_dir, probes and probes.feats)
+    _finish_eval(output_dir, feats)
     return imdb_obj.evaluate_detections(all_boxes, output_dir)
 
 

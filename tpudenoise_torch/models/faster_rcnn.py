@@ -217,16 +217,18 @@ class FasterRCNN(nn.Module):
 
     def forward_train(self, params, key, images: torch.Tensor,
                       im_info: torch.Tensor, gt_boxes: torch.Tensor,
-                      gt_mask: torch.Tensor) -> dict:
+                      gt_mask: torch.Tensor, image_keys=None) -> dict:
         """The training forward with `params` (a state dict whose trainable
         tensors may require grad) over a batch: images (B, H, W, 3)
         preprocessed, im_info (B, 3), gt_boxes (B, G, 5) padded (x1, y1,
         x2, y2, class), gt_mask (B, G).  Image i takes key i of
-        split(key, B) and splits it into its anchor-target, proposal-target
-        and dropout keys, as the JAX step's vmap does.  Returns the four
-        losses and total_loss, each the mean over the batch (no weight
-        decay: the train step adds it)."""
-        keys = prng.split(key, images.shape[0])                 # (B, 2)
+        split(key, B) (or row i of image_keys, (B, 2): a rank's rows of
+        the global batch's split) and splits it into its anchor-target,
+        proposal-target and dropout keys, as the JAX step's vmap does.
+        Returns the four losses and total_loss, each the mean over the
+        batch (no weight decay: the train step adds it)."""
+        keys = (prng.split(key, images.shape[0]) if image_keys is None
+                else np.asarray(image_keys, np.uint32))         # (B, 2)
         k_at, k_pt, k_do = np.moveaxis(prng.split(keys, 3), 1, 0)
         return torch.func.functional_call(
             _Losses(self), {'m.' + k: v for k, v in params.items()},

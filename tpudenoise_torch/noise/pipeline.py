@@ -114,6 +114,16 @@ class _Pipeline:
     def masked(self, keys, images: torch.Tensor, hw) -> torch.Tensor:
         return self.keyed(keys, images)
 
+    def share(self, key, images: torch.Tensor, start: int,
+              batch: int) -> torch.Tensor:
+        """Rows start .. start + len(images) of self(key, x), x a batch
+        of `batch` images whose rows those are: the whole batch's draws,
+        this share's rows of them (data parallelism)."""
+        n = images.shape[0]
+        return self._apply(images, [
+            a[start:start + n] if a is not None else None
+            for a in self._draw([key], batch)])
+
 
 def _sap_pipeline(amount: float, double: bool) -> _Pipeline:
     def draw(keys, batch):
@@ -178,6 +188,13 @@ class _PerImagePipeline:
             raise ValueError('one key per image')
         return self._apply_masked(prng.split(keys, 1)[:, 0], images,
                                   G._hw_rows(hw, images.shape[0]))
+
+    def share(self, key, images: torch.Tensor, start: int,
+              batch: int) -> torch.Tensor:
+        """Rows start .. start + len(images) of self(key, x), x a batch
+        of `batch` images whose rows those are."""
+        keys = prng.split(key, batch)[start:start + images.shape[0]]
+        return self._apply(keys, images)
 
 
 # kinds whose `_wavelet` variant denoises the noisy floats; the others

@@ -19,6 +19,19 @@ has no orbax).  `SNAPSHOT_KEPT` prunes the oldest; `train_model` resumes
 from the newest, exactly: the same batches and keys follow.
 `models.convert.save_params_npz` writes a snapshot's params as the shared
 `.npz`, which the JAX package's `load_pretrained` reads.
+
+Data parallelism (`core.mesh.production_mesh`: a process group of more
+than one rank and a batch they divide): every rank runs the same seeded
+loader and keeps its rows of each batch, so the global batch and the
+exact resume are the single device's.  As in the JAX solver, the noise
+then takes `fn.keyed` (or `fn.masked`) with fold_in(k_noise, i) for each
+global index i, also for a batch that fills the bucket; a world of 1 has
+no mesh and keeps `fn(k_noise, images)`.  The parameters are broadcast
+from rank 0 after the init or restore, the step all-reduces gradients
+and losses (`train_step.py`).  Only rank 0 writes snapshots and the
+metrics logger's files; the ranks meet at a barrier after each snapshot
+and before the restore, and take rank 0's decisions on the host clock
+(summaries, the validation loader's seed).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from tpudenoise_torch.core import mesh as M
 from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import cfg as default_cfg
 from tpudenoise_torch.data.loader import RoiDataLoader
@@ -43,18 +57,6 @@ from tpudenoise_torch.utils.blob import derive_bucket
 from tpudenoise_torch.utils.logging import MetricsLogger
 from tpudenoise_torch.utils.timer import Timer
 from tpudenoise_torch.utils.transfer import to_device
-
-
-def production_mesh(batch_size: int, device) -> None:
-    """The JAX solver trains data-parallel over every visible device when
-    there is more than one and the batch divides over them.  That is not
-    ported: raise where it would shard; one device trains unsharded."""
-    n = torch.cuda.device_count() if device.type == 'cuda' else 1
-    if n > 1 and batch_size % n == 0:
-        raise NotImplementedError(
-            f'data-parallel training over {n} GPUs is not ported yet '
-            f'(ROADMAP Queue 1 item 16); use a batch that {n} does not '
-            f'divide, or CUDA_VISIBLE_DEVICES, to train on one GPU')
 
 
 class Solver:
@@ -90,14 +92,21 @@ class Solver:
         self.batch_size = batch_size
         self.max_gt = max_gt
         self.prefetch = prefetch
+        # rank 0 writes; without a process group, the only process does
+        self.writer = M.rank() == 0
         os.makedirs(output_dir, exist_ok=True)
-        self.logger = MetricsLogger(logdir=tb_dir, tb_dir=tb_dir)
+        self.logger = (MetricsLogger(logdir=tb_dir, tb_dir=tb_dir)
+                       if self.writer else MetricsLogger())
         self._noise_fn = make_pipeline(parse_noise(noise, mode='TRAIN'),
                                        mode='TRAIN', fast_rng=fast_rng)
         print(f'noise pipeline backend: {self._noise_fn.backend}')
-        production_mesh(batch_size, self.device)
-        self._init_state_fn, self._step_fn = make_train_step(model,
-                                                             self.cfg)
+        self.mesh = M.production_mesh(self.cfg, batch_size)
+        if self.mesh is not None:
+            print(f'training on a {M.world_size()}-rank '
+                  f'{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))} '
+                  f'mesh')
+        self._init_state_fn, self._step_fn = make_train_step(
+            model, self.cfg, mesh=self.mesh)
         self._means = torch.tensor(np.asarray(self.cfg.PIXEL_MEANS,
                                               np.float32).reshape(3),
                                    device=self.device)
@@ -111,6 +120,8 @@ class Solver:
     def snapshot(self, state: TrainState, key, loader, val_loader,
                  iter_: int) -> str:
         path = self._snapshot_path(iter_)
+        if not self.writer:
+            return path
         cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
         torch.save({'params': cpu(state.params),
                     'momentum': cpu(state.momentum), 'step': state.step,
@@ -157,16 +168,32 @@ class Solver:
 
     # --------------------------------------------------------- train ----
 
+    def _barrier(self):
+        if M.world_size() > 1:
+            torch.distributed.barrier()
+
+    def _agree(self, value):
+        """Rank 0's value (a bool or int decided on the host) on every
+        rank; the value itself without a process group."""
+        return M.agree(value, self.device) if M.world_size() > 1 else value
+
     def _prep_batch(self, key, batch) -> dict:
-        """The loader's numpy batch on the device: noise (masked when an
-        image does not fill the bucket), mean subtraction, a zero pad."""
-        imgs = to_device(batch['image'], self.device)
-        bh, bw = imgs.shape[1], imgs.shape[2]
+        """The loader's numpy batch on the device (under a mesh, this
+        rank's rows of it): noise (masked when an image does not fill the
+        bucket), mean subtraction, a zero pad."""
+        b = batch['image'].shape[0]
         hw = batch['im_info'][:, :2].astype(np.int64)
-        padded = bool((hw != (bh, bw)).any())
+        padded = bool((hw != batch['image'].shape[1:3]).any())
+        keys = None
+        if padded or self.mesh is not None:
+            keys = prng.fold_in(key, np.arange(b))
+        if self.mesh is not None:
+            batch, keys, hw = M.shard_batch(self.mesh, (batch, keys, hw))
+        imgs = to_device(batch['image'], self.device)
         if padded:
-            keys = prng.fold_in(key, np.arange(imgs.shape[0]))
             noisy = self._noise_fn.masked(keys, imgs, hw)
+        elif keys is not None:
+            noisy = self._noise_fn.keyed(keys, imgs)
         else:
             noisy = self._noise_fn(key, imgs)
         out = noisy - self._means
@@ -233,7 +260,8 @@ class Solver:
             from tpudenoise_torch.data.prefetch import PrefetchLoader
             loader = PrefetchLoader(loader)
         val_loader = RoiDataLoader(self.valroidb, self.imdb.num_classes,
-                                   C, random_seed=int(time.time()) % 2**31,
+                                   C, random_seed=self._agree(
+                                       int(time.time()) % 2**31),
                                    batch_size=self.batch_size,
                                    bucket=self.bucket, max_gt=self.max_gt)
         key = prng.PRNGKey(C.RNG_SEED)
@@ -245,11 +273,15 @@ class Solver:
                             for k, v in state.momentum.items()}, state.step)
         start = 0
         if resume:
+            self._barrier()
             last = self.find_previous()
             if last > 0:
                 print(f'Restoring from iteration {last}')
                 state, key, start = self.restore(state, loader, val_loader,
                                                  last)
+        if self.mesh is not None:
+            # rank 0's parameters and momentum on every rank
+            M.replicated(self.mesh, (state.params, state.momentum))
         timer = Timer()
         last_summary = time.time()
         try:
@@ -274,7 +306,8 @@ class Solver:
                             f'non-finite loss at iter {it}: {vals} — '
                             f'aborting (set TRAIN.NAN_ABORT False to '
                             f'ignore)')
-                if time.time() - last_summary > C.TRAIN.SUMMARY_INTERVAL:
+                if self._agree(time.time() - last_summary
+                               > C.TRAIN.SUMMARY_INTERVAL):
                     self._log_gt_image_summary(batch, it)
                     self._log_histogram_summaries(state, batch, it)
                     if self.valroidb:
@@ -288,9 +321,12 @@ class Solver:
                     last_summary = time.time()
                 if it % C.TRAIN.SNAPSHOT_ITERS == 0:
                     self.snapshot(state, key, loader, val_loader, it)
-                    self.remove_old_snapshots()
+                    if self.writer:
+                        self.remove_old_snapshots()
+                    self._barrier()
             if max_iters % C.TRAIN.SNAPSHOT_ITERS != 0:
                 self.snapshot(state, key, loader, val_loader, max_iters)
+                self._barrier()
         finally:
             if self.prefetch:
                 loader.close()

@@ -21,6 +21,15 @@ the L2 term over every conv and dense kernel, frozen ones too.  Parameters stay 
 the model computes in its dtype (bf16 by default) through differentiable
 casts, so gradients land in f32.  The step count lives on the host, so
 the learning rate never waits on the device.
+
+With a mesh (data parallelism, `core.mesh`), each rank's batch is its
+rows of the global batch of B = rows x ranks images, and the step is the
+JAX step on the global batch: image i of the global batch takes key i of
+split(key, B); each rank differentiates its rows' mean / ranks (rank 0
+adds the L2 term, so it counts once), one all-reduce sums the gradients
+(flattened into one buffer) before the clip, and the reported losses are
+all-reduced the same way, so every rank holds the global batch's means
+and applies the same update: the parameters stay replicated.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tpudenoise_torch.core import prng
 from tpudenoise_torch.core.config import AttrDict
 
 
@@ -78,7 +89,19 @@ class TrainState(NamedTuple):
     step: int
 
 
-def make_train_step(model, cfg: AttrDict):
+def _all_reduce_flat(tensors, group):
+    """The sum over the group's ranks of each tensor, by one all-reduce of
+    their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
+
+
+def make_train_step(model, cfg: AttrDict, mesh=None):
     """Returns (init_state, step_fn).
 
     init_state(generator, image_shape) -> TrainState: the seeded init
@@ -90,7 +113,8 @@ def make_train_step(model, cfg: AttrDict):
     the losses only and returns the state unchanged (the validation
     losses).  mark(stage), when given, is called as each stage's work has
     been queued: 'forward' (forward and losses), 'backward' and
-    'optimizer' (the profiling hook of the stage split)."""
+    'optimizer' (the profiling hook of the stage split).  mesh: batch
+    holds this rank's rows of the global batch (module docstring)."""
     names = [n for n, _ in model.named_parameters()]
     trainable = [n for n in names if not model.frozen(n)]
     wd = cfg.TRAIN.WEIGHT_DECAY
@@ -104,27 +128,50 @@ def make_train_step(model, cfg: AttrDict):
         return TrainState(params, {n: torch.zeros_like(params[n])
                                    for n in names}, 0)
 
+    if mesh is not None:
+        group = mesh.get_group('data')
+        n_ranks = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+
     def losses_of(params, key, batch):
+        """(the objective to differentiate, the losses to report)."""
+        b = batch['image'].shape[0]
+        image_keys = None
+        if mesh is not None:
+            image_keys = prng.split(key, b * n_ranks)[rank * b:
+                                                      (rank + 1) * b]
         losses = model.forward_train(params, key, batch['image'],
                                      batch['im_info'], batch['gt_boxes'],
-                                     batch['gt_mask'])
-        losses['total_loss'] = (losses['total_loss']
-                                + l2_regularization(params, wd))
-        return losses
+                                     batch['gt_mask'], image_keys)
+        reg = l2_regularization(params, wd)
+        if mesh is None:
+            losses['total_loss'] = losses['total_loss'] + reg
+            return losses['total_loss'], losses
+        objective = losses['total_loss'] / n_ranks
+        if rank == 0:
+            objective = objective + reg
+        terms = sorted(losses)
+        sums = _all_reduce_flat(
+            [losses[k].detach().reshape(1) for k in terms], group)
+        losses = {k: v[0] / n_ranks for k, v in zip(terms, sums)}
+        losses['total_loss'] = losses['total_loss'] + reg.detach()
+        return objective, losses
 
     def step_fn(state: TrainState, key, batch, update: bool = True,
                 mark=None):
         if not update:
             with torch.no_grad():
-                return state, losses_of(state.params, key, batch)
+                return state, losses_of(state.params, key, batch)[1]
         mark = mark or (lambda stage: None)
         params = dict(state.params)
         for n in trainable:
             params[n] = params[n].detach().requires_grad_(True)
-        losses = losses_of(params, key, batch)
+        objective, losses = losses_of(params, key, batch)
         mark('forward')
-        grads = torch.autograd.grad(losses['total_loss'],
+        grads = torch.autograd.grad(objective,
                                     [params[n] for n in trainable])
+        if mesh is not None:
+            grads = _all_reduce_flat(grads, group)
         mark('backward')
         with torch.no_grad():
             if clip > 0:

@@ -1,9 +1,11 @@
 """Image geometry helpers (counterpart of `tpudenoise/utils/blob.py`
-`rescale_geometry` and `derive_bucket`).
+`rescale_geometry`, `prep_im_for_blob` and `derive_bucket`, and of
+`tpudenoise/models/faster_rcnn.py` `pad_to_bucket`).
 
 The min-side/max-side rescale rule and the static padded bucket of the
 batched eval harness, in double precision so that im_info equals the
-reference's.
+reference's; the host prep (cv2's resize, imported when it is called:
+the GPU machine has no cv2).
 """
 
 from __future__ import annotations
@@ -20,6 +22,30 @@ def rescale_geometry(h: int, w: int, target_size: int, max_size: int):
         im_scale = float(max_size) / float(max(h, w))
     return (im_scale, int(np.round(h * im_scale)),
             int(np.round(w * im_scale)))
+
+
+def prep_im_for_blob(im: np.ndarray, pixel_means, target_size: int,
+                     max_size: int):
+    """Mean subtraction, then cv2's bilinear resize by the rescale rule's
+    scale, on the host: (image (oh, ow, 3) f32, scale)."""
+    import cv2
+    im = im.astype(np.float32, copy=False) - pixel_means
+    im_scale, _, _ = rescale_geometry(im.shape[0], im.shape[1],
+                                      target_size, max_size)
+    im = cv2.resize(im, None, None, fx=im_scale, fy=im_scale,
+                    interpolation=cv2.INTER_LINEAR)
+    return im, im_scale
+
+
+def pad_to_bucket(im: np.ndarray, bucket=(608, 1024)):
+    """Zero-pad (H, W, 3) to the static bucket: (padded, (h, w))."""
+    h, w = im.shape[:2]
+    bh, bw = bucket
+    if h > bh or w > bw:
+        raise ValueError(f'image {h}x{w} exceeds bucket {bh}x{bw}')
+    out = np.zeros((bh, bw, 3), np.float32)
+    out[:h, :w] = im
+    return out, (h, w)
 
 
 def _round_up(v: int, m: int = 32) -> int:
