@@ -204,6 +204,31 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      AUG_TYPES forced on 8 images of 600x1000 (ms per image), each
      `add_sun_flare` launch of kernel 8 held to its plain version, and
      every name on two 120x160 images card against CPU;
+  5h. the TensorFlow sources and the XLA route (after 5f, before 5d's
+     profiler sessions): the port's checkpoint writer writes a seeded
+     full-width resnet_v1_101 under the slim ImageNet scopes and a res101
+     detector under the reference's scopes (21 classes, a global_step) as
+     V2 checkpoints; `cli.convert` turns each into a `.npz` through the
+     numpy reader (host seconds and MB/s), the trees equal to the written
+     arrays bit for bit (conv1 flipped to BGR in the ImageNet one only);
+     `cli.trainval --weight` on the ImageNet `.npz`, 2 iterations on the
+     training phase's images (`Loaded n/N`, finite losses, every launch
+     held to its plain version); `cli.test --model` with the detector
+     over 16 numpy-written VOC images of 600x1000 (its 21 classes) on
+     sap_median_var0.4, batch 8 (kernel 1 once and kernel 3 and the walk
+     twice a chunk, every launch held to its plain version), its
+     detections bit-equal to those of the same command with the arrays
+     saved directly by save_tree_npz; then `make_pipeline(...,
+     use_kernels=False)` on one res101 chunk of 8 for sap_median_var0.4,
+     gaussian_gaus_blur_var0.1, noise_mix_var_all and
+     noise_mix_var_all_bilateral, fast_rng off and on: the route's draws
+     (threefry, or the hash kernel) and kernel 5 launched and no fused
+     kernel, every launch held to its plain version, finite detections,
+     the keyed noise held to the same route on the CPU (sap bit-exact,
+     the others within a mod-256 distance of 1 on <= 1e-3 of the
+     elements; the bilateral post-pass as kernel 5's plain version of the
+     plain mix's output), and the noise stage's ms by CUDA events beside
+     the default route's;
   6. where the time goes: one chunk of each string under torch.profiler,
      the device's activity only (device kernel time, idle share, the
      port's own kernels' share, split by kernel name with their launches:
@@ -272,6 +297,7 @@ from tpudenoise_torch.core.config import default_config, get_output_dir
 from tpudenoise_torch.data import synthetic
 from tpudenoise_torch.data.voc_like import rrData
 from tpudenoise_torch.denoise import bilateral as bil
+from tpudenoise_torch.denoise import stencils
 from tpudenoise_torch.eval.harness import (detect_chunk, limit_per_image,
                                            noise_chunk, set_matmul_precision,
                                            test_net_batched)
@@ -3156,11 +3182,13 @@ def fdct_cli(card: str) -> dict:
     return {'cli.fdct': dict(wall_s=wall, launches=launches)}
 
 
-def randomized_resnet(net: str, seed: int = 15) -> dict:
-    """The seeded res101 of rrData's two classes with every conv3 kernel
-    and BN statistic of its head drawn at random: the seeded init zeroes
-    conv3, which would leave every probe reading zeros."""
-    model = FasterRCNN(net, num_classes=2)
+def randomized_resnet(net: str, seed: int = 15,
+                      num_classes: int = 2) -> dict:
+    """The seeded res101 of rrData's two classes (or num_classes) with
+    every conv3 kernel and BN statistic of its head drawn at random: the
+    seeded init zeroes conv3, which would leave every probe reading
+    zeros."""
+    model = FasterRCNN(net, num_classes=num_classes)
     params = seeded(model)
     rng = np.random.RandomState(seed)
     for name, p in params.items():
@@ -3698,6 +3726,356 @@ def slice16_phase(card: str, mob, cli: dict) -> dict:
     return out
 
 
+# ------------------------------------------------ slice 18: phase 5h --
+
+# the converted checkpoints' images: a VOC set (the detector's 21 classes)
+# of the CLI phase's count and size
+CONVERT_IMAGES = 16
+CONVERT_ITERS = 2
+# the XLA route's strings (make_pipeline(..., use_kernels=False)), each
+# with fast_rng off and on, and the CPU bound of each against the card
+# on the card's draws: bit-exact (uniform draws, integer stencils) or a
+# mod-256 distance <= 1 on <= 1e-3 of the elements (the card's and the
+# CPU's log, exp and cos; tests/test_torch_backend_xla's bound)
+XLA_NOISES = ('sap_median_var0.4', 'gaussian_gaus_blur_var0.1',
+              'noise_mix_var_all', 'noise_mix_var_all_bilateral')
+XLA_EXACT = {'sap_median_var0.4'}
+XLA_SHARE = 1e-3
+# the XLA route's wrappers: the training path's, its bilateral stages
+# through the stencils module's
+XLA_TAPPED = {**TRAIN_TAPPED,
+              'bilateral_batched': (stencils, 'bilateral_batched',
+                                    bil.bilateral_plain)}
+
+
+def slim_resnet_arrays(tree: dict, net: str, detector: bool) -> dict:
+    """{checkpoint name: array} of a JAX-layout resnet tree under the
+    reference's slim scopes (the converters' mapping run backwards): the
+    backbone, and with detector the rpn and cls/bbox heads and a
+    global_step."""
+    from tpudenoise_torch.models.convert import DETECTOR_SCOPES
+    scope = DETECTOR_SCOPES[net]
+    out = {}
+
+    def bn(prefix, p):
+        for leaf, name in (('gamma', 'gamma'), ('beta', 'beta'),
+                           ('mean', 'moving_mean'),
+                           ('var', 'moving_variance')):
+            out[f'{prefix}/BatchNorm/{name}'] = p[leaf]
+
+    head = tree['head']
+    out[f'{scope}/conv1/weights'] = head['conv1']['kernel']
+    bn(f'{scope}/conv1', head['conv1_bn'])
+    blocks = {**{k: v for k, v in head.items() if k.startswith('block')},
+              **tree['tail']['tail']}
+    for b, block in blocks.items():
+        for u, unit in block.items():
+            base = f'{scope}/{b}/{u}/bottleneck_v1'
+            for name, p in unit.items():
+                if 'bn' in name:      # bn1..3 -> convN, shortcut_bn
+                    bn(f'{base}/' + ('shortcut' if name == 'shortcut_bn'
+                                     else f'conv{name[2]}'), p)
+                else:
+                    out[f'{base}/{name}/weights'] = p['kernel']
+    if detector:
+        heads = {**tree['rpn'], **tree['tail']['rcnn']}
+        for name, p in heads.items():
+            ckpt = 'rpn_conv/3x3' if name == 'rpn_conv' else name
+            out[f'{scope}/{ckpt}/weights'] = p['kernel']
+            out[f'{scope}/{ckpt}/biases'] = p['bias']
+        out['global_step'] = np.int64(70000)
+    return out
+
+
+def _same_leaves(got: dict, want: dict, what: str) -> int:
+    """Two JAX-layout trees, leaf for leaf and bit for bit."""
+    from tpudenoise_torch.models.convert import _flatten
+    got, want = _flatten(got), _flatten(want)
+    if sorted(got) != sorted(want):
+        odd = sorted(set(got) ^ set(want))[:5]
+        raise AssertionError(f'{what}: leaves {odd} differ')
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g, w):
+            raise AssertionError(f'{what}: {k} differs from the written '
+                                 f'array')
+    return len(want)
+
+
+def convert_sources(card: str, root: str) -> dict:
+    """The port's writer writes a seeded full-width resnet_v1_101 (slim
+    ImageNet scopes) and a res101 detector (the reference's scopes, 21
+    classes, global_step) as V2 checkpoints; `cli.convert` turns each
+    into a `.npz` (host seconds and MB/s of the data file logged), whose
+    tree must equal the written arrays bit for bit, conv1 flipped to BGR
+    in the ImageNet one only."""
+    import os.path as osp
+
+    from tpudenoise_torch.cli import convert as cli_convert
+    from tpudenoise_torch.models.convert import (_unflatten, save_tree_npz,
+                                                 to_jax_flat)
+    from tpudenoise_torch.models.tf_checkpoint import write_checkpoint
+    out, info = {}, {}
+    for kind, classes, seed in (('imagenet', 2, 23), ('detector', 21, 24)):
+        tree = _unflatten(to_jax_flat(randomized_resnet('res101', seed,
+                                                        classes)))
+        if kind == 'imagenet':
+            tree = {'head': tree['head'],
+                    'tail': {'tail': tree['tail']['tail']}}
+        prefix = osp.join(root, f'res101_{kind}.ckpt')
+        t0 = time.perf_counter()
+        write_checkpoint(prefix, slim_resnet_arrays(tree, 'res101',
+                                                    kind == 'detector'))
+        t_write = time.perf_counter() - t0
+        mb = osp.getsize(prefix + '.data-00000-of-00001') / 1e6
+        npz = osp.join(root, f'res101_{kind}.npz')
+        argv = ['--src', prefix, '--net', 'res101', '--out', npz]
+        t0 = time.perf_counter()
+        got = cli_convert.main(argv + (['--detector'] if kind == 'detector'
+                                       else []))
+        t_convert = time.perf_counter() - t0
+        want = copy.deepcopy(tree)
+        if kind == 'imagenet':
+            conv1 = want['head']['conv1']
+            conv1['kernel'] = conv1['kernel'][:, :, ::-1, :]
+        leaves = _same_leaves(got, want, f'cli.convert {kind}')
+        with np.load(npz) as f:
+            entries = len(f.files)
+        if entries != leaves:
+            raise AssertionError(f'cli.convert {kind}: {entries} entries')
+        info[kind] = dict(prefix=prefix, npz=npz, entries=entries)
+        if kind == 'detector':
+            info[kind]['straight'] = osp.join(root, 'res101_straight.npz')
+            save_tree_npz(tree, info[kind]['straight'])
+        out[f'cli.convert res101 {kind}'] = dict(
+            data_mb=mb, write_s=t_write, convert_s=t_convert,
+            mb_per_s=mb / t_convert, entries=entries, launches={})
+        log(f'cli.convert res101 {kind}: V2 checkpoint of {mb:.1f} MB '
+            f'(written by the port in {t_write:.2f} s) -> {entries} '
+            f'entries in {t_convert:.2f} s of host time ({mb / t_convert:.1f}'
+            f' MB/s, every block and tensor crc32c checked); the tree equals'
+            f' the written arrays bit for bit'
+            + (', conv1 flipped to BGR' if kind == 'imagenet' else '')
+            + f'  [{card}]')
+    return out, info
+
+
+def convert_train(card: str, npz: str, entries: int) -> dict:
+    """cli.trainval --weight on the converted ImageNet `.npz`,
+    CONVERT_ITERS iterations on the training phase's images: `Loaded
+    n/N` with n the file's entries, finite losses, every launch held to
+    its plain version."""
+    import io
+    import os.path as osp
+    repo = default_config().ROOT_DIR
+    inp = dict(repo=repo, root=osp.join(repo, 'build', 'chip_smoke_train'))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        entry = train_cli(card, inp, 'res101', TRAIN_NOISE, CONVERT_ITERS,
+                          'converted', extra=('--weight', npz))[0]
+    printed = buf.getvalue()
+    print(printed[-4000:], end='', flush=True)
+    want = f'Loaded {entries}/'
+    if want not in printed or 'matched no model parameter' in printed:
+        raise AssertionError(f'cli.trainval --weight: no "{want}" '
+                             f'({printed[-800:]})')
+    if len(entry['iterations']) != CONVERT_ITERS:
+        raise AssertionError(f'cli.trainval --weight: iterations '
+                             f'{entry["iterations"]}')
+    return {'cli.trainval --weight (converted res101)': entry}
+
+
+def convert_eval(card: str, root: str, det: dict) -> dict:
+    """cli.test --model with the converted detector over CONVERT_IMAGES
+    numpy-written VOC images of 600x1000, LOOP_NOISE, --eval-batch 8:
+    20 finite APs, kernel 1 once and kernel 3 and the walk twice a chunk,
+    every launch held to its plain version; then the same command with
+    the `.npz` that save_tree_npz wrote from the same arrays: the same
+    detections, bit for bit."""
+    import os.path as osp
+    import pickle
+
+    from tpudenoise_torch.cli import test as cli_test
+    from tpudenoise_torch.data.cache_pixels import default_pixel_dir
+    cfg = default_config()
+    cfg.ROOT_DIR = root
+    synthetic.write_voc(root, [(H, W)] * CONVERT_IMAGES, seed=13,
+                        pixel_dir=default_pixel_dir('voc_2007_test', cfg))
+    chunks = CONVERT_IMAGES // B
+    dets, out = {}, {}
+    for which in ('npz', 'straight'):
+        npz = det[which]
+        argv = ['--net', 'res101', '--cfg', osp.join(
+            default_config().ROOT_DIR, 'experiments', 'cfgs', 'res101.yml'),
+            '--imdb', 'voc_2007_test', '--noise', LOOP_NOISE,
+            '--eval-batch', str(B), '--model', npz,
+            '--set', 'DATA_DIR', root, 'ROOT_DIR', root]
+        with taped() as calls:
+            aps, wall, counts, run_cfg = run_cli(cli_test.main, argv)
+        if len(aps) != 20 or not all(np.isfinite(a) for a in aps):
+            raise AssertionError(f'cli.test --model {which}: APs {aps}')
+        launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                    + NMS_KERNELS}
+        if launches != {'fused_sap_median_batched': chunks,
+                        MASKS: 2 * chunks, WALK: 2 * chunks}:
+            raise AssertionError(f'cli.test --model {which}: launches '
+                                 f'{launches}')
+        path = f'cli.test --model ({which} res101 detector)'
+        held = hold_to_plain(calls, path, card)
+        del calls
+        imdb_name = 'voc_2007_test'
+        with open(osp.join(get_output_dir(imdb_name, npz.replace('/', '_'),
+                                          run_cfg), 'detections.pkl'),
+                  'rb') as f:
+            dets[which] = pickle.load(f)
+        n = sum(len(np.asarray(d).reshape(-1, 5)) for c in dets[which][1:]
+                for d in c)
+        log(f'{path} over {CONVERT_IMAGES} VOC images of {H}x{W}, '
+            f'{LOOP_NOISE}, --eval-batch {B}: main() {wall:.2f} s, mAP '
+            f'{np.mean(aps):.4f}, {n} detections; launches '
+            f'{json.dumps(launches)}  [{card}]')
+        if which == 'npz':
+            out[path] = dict(wall_s=wall, aps=aps, detections=n,
+                             launches=launches, held=held)
+    for c, (a, b) in enumerate(zip(dets['npz'], dets['straight'])):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f'cli.test: class {c} image {i}: the '
+                                     f'converted detector detects otherwise '
+                                     f'than the same arrays saved directly')
+    log(f'cli.test --model: the converted detector\'s detections equal '
+        f'those of the directly saved arrays, bit for bit  [{card}]')
+    return out
+
+
+def _xla_route_launches(counts: dict, noise: str, fast: bool) -> dict:
+    """The XLA route's chunk: its draws (the hash kernel's under fast),
+    kernel 5 for the bilateral post-pass, kernel 3 and the walk twice, no
+    fused kernel."""
+    draw = 'hash_draw' if fast else 'threefry_draw'
+    want = [draw] + (['bilateral_batched'] if noise.endswith('_bilateral')
+                     else [])
+    fused = ('fused_sap_median_batched', 'fused_gaussian_blur',
+             'fused_mix_noise', 'fused_mix_bilateral')
+    launches = {k: counts[k] for k in want + list(NMS_KERNELS)
+                + ['threefry_draw']}
+    if (not all(counts[k] for k in want) or any(counts[k] for k in fused)
+            or any(counts[k] != 2 for k in NMS_KERNELS)):
+        raise AssertionError(f'{noise} use_kernels=False: launches {counts}')
+    return launches
+
+
+# the draw wrappers whose card outputs the CPU reference replays
+DRAWS = ('threefry_draw', 'hash_draw')
+
+
+@contextlib.contextmanager
+def replayed(calls: dict):
+    """prng's draw wrappers return the recorded card draws, in order, on
+    the host (each call's arguments checked against the recorded ones):
+    the CPU then computes from the card's own draws, which are held to
+    their plain version apart."""
+    queues = {name: list(calls.get(name, [])) for name in DRAWS}
+
+    def replay(name):
+        def call(*a, **k):
+            ra, rk, out = queues[name].pop(0)
+            if not (torch.equal(a[0], ra[0].cpu()) and a[1:] == tuple(ra[1:])
+                    and k == rk):
+                raise AssertionError(f'{name}: the CPU drew otherwise than '
+                                     f'the card')
+            return out.cpu()
+        return lambda fn: call
+
+    with patched(prng, 'threefry_draw', replay('threefry_draw')), \
+            patched(prng, 'hash_draw', replay('hash_draw')):
+        yield
+    left = {k: len(v) for k, v in queues.items() if v}
+    if left:
+        raise AssertionError(f'draws the CPU did not make: {left}')
+
+
+def xla_route(card: str, res) -> dict:
+    """make_pipeline(..., use_kernels=False) (the reference's XLA route)
+    on one res101 chunk of 8 for XLA_NOISES, fast_rng off and on:
+    detect_chunk's detections finite, the route's launches, every launch
+    held to its plain version (the draws: threefry normals within 2 ulp,
+    the rest bit-exact); its noise output (the keyed noise of the chunk's
+    keys) held to the same route on the CPU fed the card's draws
+    (`replayed`: a Brownian path sums 1.8M increments, so a draw's last
+    ulp moves its wrapped bytes anywhere), XLA_EXACT bit-exact and the
+    others within a mod-256 distance of 1 on <= XLA_SHARE of the elements
+    (the CPU's and the card's log, exp and cos); the noise stage's ms by
+    CUDA events beside the default (kernel) route's on the same keys."""
+    model, params, raw, levels, key = res
+    idx = list(range(B))
+    keys = prng.fold_in(key, np.asarray(idx))
+    raw_cpu = raw.cpu()
+    out = {}
+    for fast in (False, True):
+        for noise in XLA_NOISES:
+            fn = make_pipeline(noise, use_kernels=False, fast_rng=fast)
+            kfn = make_pipeline(noise, fast_rng=fast)
+            name = f'res101 {noise} use_kernels=False' + (
+                ' --fast-rng' if fast else '')
+            zero_counts()
+            with taped(XLA_TAPPED) as calls:
+                boxes, scores, mask = detect_chunk(model, params, key, idx,
+                                                   raw, levels, fn)
+                torch.cuda.synchronize()
+            launches = _xla_route_launches(launch_counts(), noise, fast)
+            sc, kept = scores.cpu().numpy(), mask.cpu().numpy()
+            if not (np.isfinite(boxes.cpu().numpy()).all()
+                    and np.isfinite(sc[kept]).all() and kept.any()):
+                raise AssertionError(f'{name}: detections not finite or '
+                                     f'none kept')
+            held = hold_train_to_plain(calls, name, card)
+            del calls
+            with taped({k: TRAIN_TAPPED[k] for k in DRAWS}) as draws:
+                got = fn.keyed(keys, raw).cpu()
+            with replayed(draws):
+                want = fn.keyed(keys, raw_cpu)
+            del draws
+            d = (got.double() - want.double()).abs()
+            d = torch.minimum(d, 256.0 - d)
+            err, share = d.max().item(), (d > 0).double().mean().item()
+            if (err if noise in XLA_EXACT else
+                    (err > 1 or share > XLA_SHARE)):
+                raise AssertionError(f'{name}: card and CPU differ (max '
+                                     f'{err}, share {share:.2e})')
+            ms = time_ms(lambda: fn.keyed(keys, raw), 3, warm=1)
+            kms = time_ms(lambda: kfn.keyed(keys, raw), 3, warm=1)
+            out[name] = dict(backend=fn.backend, noise_ms=ms,
+                             kernel_route=kfn.backend, kernel_noise_ms=kms,
+                             max_abs_err=err, changed_share=share,
+                             launches=launches, held=held)
+            log(f'{name}: backend {fn.backend}, noise stage {ms:.2f} ms a '
+                f'chunk of {B} by CUDA events ({kfn.backend}: {kms:.2f} '
+                f'ms); card vs CPU on the card\'s draws: max mod-256 |diff| '
+                f'{err:g} on {share:.2e} of the elements; launches '
+                f'{json.dumps(launches)}  [{card}]')
+    return out
+
+
+def slice18_phase(card: str, res) -> dict:
+    """Phase 5h: the TensorFlow sources of cli.convert through the port's
+    checkpoint reader (ImageNet and detector res101 at full width), the
+    converted weights through cli.trainval --weight and cli.test --model,
+    and the XLA route (use_kernels=False) on res101 chunks."""
+    import os.path as osp
+    import shutil
+    root = osp.join(default_config().ROOT_DIR, 'build', 'chip_smoke_convert')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, info = convert_sources(card, root)
+    out.update(convert_train(card, info['imagenet']['npz'],
+                             info['imagenet']['entries']))
+    out.update(convert_eval(card, root, info['detector']))
+    out.update(xla_route(card, res))
+    return out
+
+
 # ------------------------------------------------ slice 17: phase 5g --
 
 # the data-parallel phase: training iterations a run, the timed
@@ -4212,6 +4590,9 @@ def main() -> int:
     mob = chunk_inputs(dev, 'mobile')
     e2e.update(slice16_phase(card, mob, cli))
     done('5f mobile, convert, automold')
+    # phase 5h before 5d's profiler sessions too
+    e2e.update(slice18_phase(card, res))
+    done('5h checkpoint sources, XLA route')
     e2e.update(shape_phase(card, rows))
     done('5d shapes')
     prof = profile_paths(vgg, card, NOISES)

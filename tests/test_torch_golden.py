@@ -63,12 +63,12 @@ def _golden_weights(num_classes: int = NUM_CLASSES) -> dict:
             'tail': {'tail': tail, 'rcnn': rcnn}}
 
 
-def test_vgg16_forward_test_matches_numpy_golden():
-    tree = _golden_weights()
+def held_to_golden(params: dict, tree: dict):
+    """The port's f32 vgg16 `forward_test` with the state dict params
+    against the numpy golden of the tree, at this file's bounds."""
     cfg = default_config()
     model = FasterRCNN('vgg16', num_classes=NUM_CLASSES, cfg=cfg,
                        dtype=torch.float32)
-    params = from_jax_params(tree)
     assert set(params) == set(model.state_dict())
     img = np.random.RandomState(7).uniform(-60, 60, (64, 96, 3)).astype(
         np.float32)
@@ -88,3 +88,8 @@ def test_vgg16_forward_test_matches_numpy_golden():
                                want['cls_prob'], atol=1e-4)
     np.testing.assert_allclose(out['bbox_pred'][0, :n].numpy(),
                                want['bbox_pred'], atol=2e-3)
+
+
+def test_vgg16_forward_test_matches_numpy_golden():
+    tree = _golden_weights()
+    held_to_golden(from_jax_params(tree), tree)

@@ -101,14 +101,17 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.cli.convert',
             'tpudenoise_torch.core.mesh',
             'tpudenoise_torch.parallel.dp',
-            'tpudenoise_torch.parallel.spatial'} <= names
+            'tpudenoise_torch.parallel.spatial',
+            'tpudenoise_torch.models.tf_checkpoint'} <= names
 
 
-def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml():
+def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml(tmp_path):
     """With jax, flax, `tpudenoise`, tensorflow, cv2, PIL and yaml
-    refused: mobilenet, automold and the convert CLI import; `python -m
-    tpudenoise_torch.cli.convert --help` exits 0, and a tf-slim source
-    raises naming TensorFlow and the JAX CLI."""
+    refused: mobilenet, automold, the checkpoint reader and the convert
+    CLI import; `python -m tpudenoise_torch.cli.convert --help` exits 0,
+    and a slim mobilenet checkpoint written by the port's writer goes
+    through the CLI's TensorFlow path (conv0 flipped to BGR and divided by
+    255 / 2)."""
     refused = REFUSED + ('tensorflow', 'cv2', 'PIL', 'yaml')
     code = textwrap.dedent(f'''
         import importlib.abc, runpy, sys
@@ -120,7 +123,9 @@ def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml():
                 return None
 
         sys.meta_path.insert(0, Refuse())
+        import numpy as np
         from tpudenoise_torch.cli import convert
+        from tpudenoise_torch.models import tf_checkpoint
         from tpudenoise_torch.models.backbones import mobilenet
         from tpudenoise_torch.noise import automold
         sys.argv = ['tpudenoise_torch.cli.convert', '--help']
@@ -129,14 +134,25 @@ def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml():
                              run_name='__main__')
         except SystemExit as e:
             assert e.code in (0, None), e.code
-        try:
-            convert.main(['--src', 'vgg_16.ckpt', '--net', 'vgg16',
-                          '--out', 'x.npz'])
-        except NotImplementedError as e:
-            assert 'TensorFlow' in str(e)
-            assert 'tpudenoise.cli.convert' in str(e)
-        else:
-            raise AssertionError('a tf-slim source was not refused')
+        rng = np.random.RandomState(0)
+        arrays = {{}}
+        for i in range(14):
+            for conv in (['Conv2d_0'] if i == 0 else
+                         [f'Conv2d_{{i}}_depthwise', f'Conv2d_{{i}}_pointwise']):
+                leaf = 'depthwise_weights' if 'depth' in conv else 'weights'
+                arrays[f'MobilenetV1/{{conv}}/{{leaf}}'] = rng.randn(
+                    3, 3, 3, 2).astype(np.float32)
+                for bn in ('gamma', 'beta', 'moving_mean', 'moving_variance'):
+                    arrays[f'MobilenetV1/{{conv}}/BatchNorm/{{bn}}'] = \
+                        rng.rand(2).astype(np.float32)
+        prefix = {str(tmp_path / 'mobilenet_v1.ckpt')!r}
+        tf_checkpoint.write_checkpoint(prefix, arrays)
+        tree = convert.main(['--src', prefix, '--net', 'mobile',
+                             '--out', prefix + '.npz'])
+        conv0 = arrays['MobilenetV1/Conv2d_0/weights']
+        assert np.array_equal(tree['head']['layer_0']['conv']['kernel'],
+                              conv0[:, :, ::-1] / (255.0 / 2.0))
+        assert len(np.load(prefix + '.npz').files) == 135
         bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
         print('CONVERT OK', bad)
     ''')

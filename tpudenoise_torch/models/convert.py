@@ -25,6 +25,12 @@ reads back into the tree its `init` makes.  `merge_pretrained` overlays
 a partial tree (a backbone-only `.npz`) on the port's init state dict,
 leaf for leaf: a conv or Dense kernel or bias is one weight or bias, and
 a BN's gamma, beta, mean and var are four entries.
+
+The TensorFlow sources (`convert_tf_slim_resnet`, `convert_tf_slim_vgg16`,
+`convert_tf_slim_mobilenet`, `convert_ref_detector`; numpy copies of the
+JAX package's) read the checkpoint through `models.tf_checkpoint`, which
+needs no TensorFlow, and return the same {head, rpn, tail} numpy trees,
+leaf for leaf and bit for bit; `save_tree_npz` writes them out.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import os.path as osp
 
 import numpy as np
 import torch
+
+from tpudenoise_torch.models.tf_checkpoint import CheckpointReader
 
 
 def load_params_npz(path: str) -> dict:
@@ -191,7 +199,7 @@ def merge_pretrained(state_dict: dict, tree: dict) -> dict:
         {k: pre.get(k, v) for k, v in flat.items()}))
 
 
-# ------------------------------------------------ torchvision resnets --
+# --------------------------------------------------- source converters --
 
 UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -201,6 +209,192 @@ def _bgr_flip_conv(w: np.ndarray) -> np.ndarray:
     BGR surgery on the first conv."""
     return w[:, :, ::-1, :]
 
+
+# tf-slim ImageNet checkpoints and reference-trained detectors
+
+def _reader(ckpt):
+    """A `CheckpointReader` of the prefix ckpt (or ckpt, already one)."""
+    return ckpt if isinstance(ckpt, CheckpointReader) else \
+        CheckpointReader(ckpt)
+
+
+def convert_tf_slim_resnet(ckpt_path, num_layers: int,
+                           bgr_flip: bool = True) -> dict:
+    """slim resnet_v1_{50,101,152} checkpoint -> the {'head', 'tail'}
+    trees (`tpudenoise.models.convert.convert_tf_slim_resnet`).
+
+    `resnet_v1_N/...` BatchNorm {gamma, beta, moving_mean,
+    moving_variance} -> {gamma, beta, mean, var};
+    `blockB/unit_K/bottleneck_v1/{conv1..3, shortcut}` ->
+    `blockB/unit_K/{conv1..3, bn1..3, shortcut, shortcut_bn}`, block4
+    under tail/tail.  conv1 is flipped to BGR unless bgr_flip=False (a
+    reference-trained detector, flipped at its init).  ckpt_path: a
+    checkpoint prefix or a `CheckpointReader`."""
+    reader = _reader(ckpt_path)
+    scope = f'resnet_v1_{num_layers}'
+    units = UNITS[num_layers]
+
+    def bn(prefix):
+        return {'gamma': reader.get_tensor(prefix + '/gamma'),
+                'beta': reader.get_tensor(prefix + '/beta'),
+                'mean': reader.get_tensor(prefix + '/moving_mean'),
+                'var': reader.get_tensor(prefix + '/moving_variance')}
+
+    conv1 = reader.get_tensor(scope + '/conv1/weights')
+    head = {'conv1': {'kernel':
+                      _bgr_flip_conv(conv1) if bgr_flip else conv1},
+            'conv1_bn': bn(scope + '/conv1/BatchNorm')}
+    trees = {'head': head, 'tail': {'tail': {}}}
+    for b in range(1, 5):
+        block = {}
+        for u in range(1, units[b - 1] + 1):
+            base = f'{scope}/block{b}/unit_{u}/bottleneck_v1'
+            unit = {}
+            if reader.has_tensor(base + '/shortcut/weights'):
+                unit['shortcut'] = {'kernel': reader.get_tensor(
+                    base + '/shortcut/weights')}
+                unit['shortcut_bn'] = bn(base + '/shortcut/BatchNorm')
+            for i in (1, 2, 3):
+                unit[f'conv{i}'] = {'kernel': reader.get_tensor(
+                    f'{base}/conv{i}/weights')}
+                unit[f'bn{i}'] = bn(f'{base}/conv{i}/BatchNorm')
+            block[f'unit_{u}'] = unit
+        dest = trees['head'] if b < 4 else trees['tail']['tail']
+        dest[f'block{b}'] = block
+    return trees
+
+
+VGG_REPS = (2, 2, 3, 3, 3)
+
+
+def convert_tf_slim_vgg16(ckpt_path) -> dict:
+    """slim vgg_16 checkpoint -> {'head', 'tail'}: conv1_1 flipped to BGR,
+    fc6 (7, 7, 512, 4096) and fc7 (1, 1, 4096, 4096) reshaped to dense
+    kernels (`tpudenoise.models.convert.convert_tf_slim_vgg16`)."""
+    reader = _reader(ckpt_path)
+    head = {}
+    for s, rep in enumerate(VGG_REPS, start=1):
+        for r in range(1, rep + 1):
+            w = reader.get_tensor(f'vgg_16/conv{s}/conv{s}_{r}/weights')
+            b = reader.get_tensor(f'vgg_16/conv{s}/conv{s}_{r}/biases')
+            if s == 1 and r == 1:
+                w = _bgr_flip_conv(w)
+            head[f'conv{s}_{r}'] = {'kernel': w, 'bias': b}
+    tail = {'tail': {}}
+    fc6 = reader.get_tensor('vgg_16/fc6/weights')
+    tail['tail']['fc6'] = {'kernel': fc6.reshape(-1, 4096),
+                           'bias': reader.get_tensor('vgg_16/fc6/biases')}
+    fc7 = reader.get_tensor('vgg_16/fc7/weights')
+    tail['tail']['fc7'] = {'kernel': fc7.reshape(4096, 4096),
+                           'bias': reader.get_tensor('vgg_16/fc7/biases')}
+    return {'head': head, 'tail': tail}
+
+
+def convert_tf_slim_mobilenet(ckpt_path, depth_multiplier: float = 1.0,
+                              surgery: bool = True) -> dict:
+    """slim MobilenetV1 checkpoint -> {'head', 'tail'}
+    (`tpudenoise.models.convert.convert_tf_slim_mobilenet`).
+
+    `MobilenetV1/Conv2d_0/{weights, BatchNorm}` -> `layer_0/{conv, bn}`;
+    `Conv2d_i_depthwise/depthwise_weights` (k, k, C, 1) ->
+    `layer_i/depthwise` (k, k, 1, C); `Conv2d_i_pointwise/weights` ->
+    `layer_i/pointwise`; layers 12 and 13 under tail/tail.  surgery=True
+    is the reference's fix of ImageNet weights: Conv2d_0 flipped to BGR
+    and divided by 255 / 2 (slim mobilenets take [-1, 1] inputs); False
+    for a reference-trained detector.  depth_multiplier is unused, as in
+    the JAX package."""
+    reader = _reader(ckpt_path)
+    scope = 'MobilenetV1'
+
+    def bn(prefix):
+        return {'gamma': reader.get_tensor(prefix + '/BatchNorm/gamma'),
+                'beta': reader.get_tensor(prefix + '/BatchNorm/beta'),
+                'mean': reader.get_tensor(
+                    prefix + '/BatchNorm/moving_mean'),
+                'var': reader.get_tensor(
+                    prefix + '/BatchNorm/moving_variance')}
+
+    conv0 = reader.get_tensor(scope + '/Conv2d_0/weights')
+    if surgery:
+        conv0 = _bgr_flip_conv(conv0) / (255.0 / 2.0)
+    layers = {'layer_0': {'conv': {'kernel': conv0},
+                          'bn': bn(scope + '/Conv2d_0')}}
+    for i in range(1, 14):
+        dw = reader.get_tensor(
+            f'{scope}/Conv2d_{i}_depthwise/depthwise_weights')
+        layers[f'layer_{i}'] = {
+            'depthwise': {'kernel': np.transpose(dw, (0, 1, 3, 2))},
+            'dw_bn': bn(f'{scope}/Conv2d_{i}_depthwise'),
+            'pointwise': {'kernel': reader.get_tensor(
+                f'{scope}/Conv2d_{i}_pointwise/weights')},
+            'pw_bn': bn(f'{scope}/Conv2d_{i}_pointwise'),
+        }
+    head = {k: layers[k] for k in [f'layer_{i}' for i in range(12)]}
+    tail = {'tail': {f'layer_{i}': layers[f'layer_{i}'] for i in (12, 13)}}
+    return {'head': head, 'tail': tail}
+
+
+DETECTOR_SCOPES = {'vgg16': 'vgg_16', 'res50': 'resnet_v1_50',
+                   'res101': 'resnet_v1_101', 'res152': 'resnet_v1_152',
+                   'mobile': 'MobilenetV1'}
+
+
+def convert_ref_detector(ckpt_path, net: str) -> dict:
+    """Reference-trained Faster R-CNN checkpoint -> the full {head, rpn,
+    tail} tree (`tpudenoise.models.convert.convert_ref_detector`).
+
+    The backbone scope as its converter reads it, without surgery (a
+    trained checkpoint's conv1 is BGR, its mobilenet scaled, its vgg16
+    fc6/fc7 dense), then `{scope}/rpn_conv/3x3`, `rpn_cls_score`,
+    `rpn_bbox_pred` -> rpn and `{scope}/cls_score`, `bbox_pred` ->
+    tail/rcnn, each {weights, biases} -> {kernel, bias}; bbox_pred stays
+    un-normalized, as the reference stores it."""
+    reader = _reader(ckpt_path)
+    scope = DETECTOR_SCOPES[net]
+    if net == 'vgg16':
+        trees = _vgg_detector_backbone(reader, scope)
+    elif net in ('res50', 'res101', 'res152'):
+        trees = convert_tf_slim_resnet(reader, int(net[3:]), bgr_flip=False)
+    elif net == 'mobile':
+        trees = convert_tf_slim_mobilenet(reader, surgery=False)
+    else:
+        raise ValueError(f'unknown net {net!r}')
+
+    def wb(name):
+        return {'kernel': reader.get_tensor(f'{scope}/{name}/weights'),
+                'bias': reader.get_tensor(f'{scope}/{name}/biases')}
+
+    trees['rpn'] = {'rpn_conv': wb('rpn_conv/3x3'),
+                    'rpn_cls_score': wb('rpn_cls_score'),
+                    'rpn_bbox_pred': wb('rpn_bbox_pred')}
+    trees['tail']['rcnn'] = {'cls_score': wb('cls_score'),
+                             'bbox_pred': wb('bbox_pred')}
+    return trees
+
+
+def _vgg_detector_backbone(reader, scope: str) -> dict:
+    """vgg_16 of a trained detector: the convs as stored (already BGR),
+    fc6/fc7 dense (a conv-layout fc is reshaped to (-1, out))."""
+    head = {}
+    for s, rep in enumerate(VGG_REPS, start=1):
+        for r in range(1, rep + 1):
+            head[f'conv{s}_{r}'] = {
+                'kernel': reader.get_tensor(
+                    f'{scope}/conv{s}/conv{s}_{r}/weights'),
+                'bias': reader.get_tensor(
+                    f'{scope}/conv{s}/conv{s}_{r}/biases')}
+    tail = {'tail': {}}
+    for fc in ('fc6', 'fc7'):
+        w = reader.get_tensor(f'{scope}/{fc}/weights')
+        if w.ndim == 4:
+            w = w.reshape(-1, w.shape[-1])
+        tail['tail'][fc] = {
+            'kernel': w,
+            'bias': reader.get_tensor(f'{scope}/{fc}/biases')}
+    return {'head': head, 'tail': tail}
+
+
+# torchvision resnets
 
 def convert_torch_resnet(state_dict: dict, num_layers: int) -> dict:
     """torchvision resnet{50,101,152} state dict (numpy arrays) -> the

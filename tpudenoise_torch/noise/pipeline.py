@@ -1,7 +1,9 @@
 """Noise -> denoise pipelines for a parsed plan (counterpart of
 `tpudenoise/noise/pipeline.py`).
 
-Ported routes (the reference's `use_pallas=True` routes):
+`make_pipeline(..., use_kernels=...)` is the reference's `use_pallas`.
+None or True (every caller's default) take the reference's
+`use_pallas=True` routes, on any device:
 * `sap` + median and `gaussian` + gaussian blur, each with an optional
   standalone post-pass of the same filter (`pipeline.py:475-568`);
 * mixed noise (`_fused_mix_pipeline`, `pipeline.py:323-390`): the mix
@@ -18,6 +20,16 @@ The wavelet (`denoise/wavelet.py`, f32 matmuls) runs batched over the
 whole batch with per-image statistics, on the noisy floats for the kinds
 of `_WAVELET_ON_FLOAT` and on the u8 image scaled to [0, 1] for the
 rest, then `wrap_cast_u8(255 * w)` (`pipeline.py:53-58, 126-157`).
+`use_kernels=False` is the reference's XLA route, its semantics
+reference (`pipeline.py:459-461, 584-629`): every plan, the sap, gaussian,
+bilateral-only and mix plans included, goes through the generic route,
+backend 'xla' (or 'xla+fast_rng'): the threefry generators (a top-level
+gaussian drawing its level per image), the 3x3 stencils or the wavelet,
+a mix through the mix scan with fast_rng reaching every generator; its
+bilateral stages run the bilateral kernel (within 1 level of the
+reference's XLA chain on < 1e-3 of the pixels) and bloom the bloom
+kernel (bit-equal to its XLA scan), and on a GPU the draws come from the
+threefry kernel, or the hash kernel under fast_rng.
 Seeds and key algebra come from the numpy threefry port (`core.prng`),
 and the generators' fields from its device draws, so the draws equal the
 reference's.  A mix table outside the fused kernels goes through the mix
@@ -413,11 +425,11 @@ def _bilateral_pipeline(spec: NoiseSpec, n_stages: int,
                              + ('+fast_rng' if fast else ''), apply)
 
 
-def _generic_pipeline(plan: NoisePlan, fast: bool = False
-                      ) -> _PerImagePipeline:
+def _generic_pipeline(plan: NoisePlan, fast: bool = False,
+                      route: str = 'cuda:generic') -> _PerImagePipeline:
     """The generator (threefry draws, or the counter hash when fast;
     bloom through the bloom kernel; a mix table through the mix scan),
-    its denoise and the post-pass."""
+    its denoise and the post-pass; route names the backend."""
     post = _post_batched_for(plan,
                              all(s.unit_float_output for s in plan.specs))
 
@@ -426,18 +438,28 @@ def _generic_pipeline(plan: NoisePlan, fast: bool = False
                                          images.to(torch.float32), hw,
                                          fast), hw)
 
-    return _PerImagePipeline('cuda:generic' + ('+fast_rng' if fast else ''),
-                             apply)
+    return _PerImagePipeline(route + ('+fast_rng' if fast else ''), apply)
 
 
 def make_pipeline(plan: NoisePlan | str, mode: str = 'TEST',
-                  strict_ref: bool = False, fast_rng: bool = False):
-    """Build the pipeline for a parsed plan (or raw noise string);
-    fast_rng: the counter-hash draws on the generic and bilateral routes
-    (the others ignore it, as the reference's)."""
+                  strict_ref: bool = False, use_kernels: bool | None = None,
+                  fast_rng: bool = False):
+    """Build the pipeline for a parsed plan (or raw noise string).
+
+    use_kernels is the reference's use_pallas: None or True take the
+    routes above on every device; False sends every plan through the
+    reference's XLA route (`pipeline.py:584-629`, backend 'xla'): the
+    generic route, the sap, gaussian, bilateral-only and mix plans
+    included, its draws the threefry stream of the reference's
+    generators.  fast_rng: the counter-hash draws on the generic and
+    bilateral routes, and on every generator of the XLA route ('+fast_rng'
+    in the backend); the fused sap, gaussian and mix routes ignore it, as
+    the reference's."""
     fast = bool(fast_rng)
     if isinstance(plan, str):
         plan = parse(plan, mode=mode, strict_ref=strict_ref)
+    if use_kernels is False:
+        return _generic_pipeline(plan, fast, 'xla')
     specs = plan.specs
     if len(specs) > 1:
         if all(s.denoise == Denoise.NONE and not s.is_random_level
