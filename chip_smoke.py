@@ -229,6 +229,28 @@ Phases (any failure exits non-zero; nothing runs without a GPU):
      elements; the bilateral post-pass as kernel 5's plain version of the
      plain mix's output), and the noise stage's ms by CUDA events beside
      the default route's;
+  5i. the last gaps of the JAX package (after 5h, before 5d's profiler
+     sessions; ~25 s): a seeded res101's proposals (forward_test, 300 an
+     image) on the dataset phase's 16 images written as the `rpn_file`
+     pickle; `evaluate_recall` with the IoU on the card and on the CPU
+     (the same ar, recalls and matched overlaps); an `rpn` training
+     roidb (trainval over the same images, flips) built with the IoU on
+     the card and on the CPU (the same rows, `filter_roidb` keeping the
+     same images), then `train_net` 2 iterations on the card (finite
+     losses, only gt rows in a batch); `tpudenoise_torch/examples/
+     smoke.py`'s main() in process; `test_faster_rcnn.sh 0 rrData res101
+     sap_median_var0.4` run for real in build/chip_smoke_scripts on 5h's
+     2-iteration `cli.trainval` snapshot placed at `..._iter_5000` (its
+     own process), its detections bit-equal to a direct `cli.test` with
+     the same arguments; `cli.reval --nms` on those detections on the
+     card and on the CPU with `USE_NATIVE_NMS` set and unset (the same
+     kept boxes; the three NMS routes timed); `train_faster_rcnn.sh` on
+     its NET_FINAL skip; `convert_vgg16.sh` on a seeded full-width vgg16
+     V2 checkpoint that another process writes, its `.npz` bit-equal to
+     a direct `cli.convert` (run in this process while the drivers run).
+     Every launch in this process (kernels 1, 3 and the walk) is counted
+     and held to its plain version; the drivers' processes are held
+     through their outputs, equal to the direct calls';
   6. where the time goes: one chunk of each string under torch.profiler,
      the device's activity only (device kernel time, idle share, the
      port's own kernels' share, split by kernel name with their launches:
@@ -1413,7 +1435,8 @@ def dataset_loop(card: str) -> dict:
         f'{matched}/{total} detections match detect_chunk; ground truth '
         f'scores {np.mean(gt_aps):.4f}  [{card}]')
     return dict(images=LOOP_IMAGES, wall_s=wall, img_per_s=LOOP_IMAGES / wall,
-                aps=aps, chunk0_matched=[matched, total])
+                aps=aps, chunk0_matched=[matched, total], root=root,
+                pixel_dir=pdir)
 
 
 def _timed(fn, *args):
@@ -4076,6 +4099,553 @@ def slice18_phase(card: str, res) -> dict:
     return out
 
 
+# ------------------------------------------------ slice 19: phase 5i --
+
+# phase 5i: the iterations of the rpn-roidb training, the phase's budget
+# in seconds (logged against), the test driver's arguments and where the
+# drivers live
+RPN_ITERS = 2
+PHASE_5I_S = 30.0
+TEST_DRIVER_ARGS = ('0', 'rrData', 'res101', LOOP_NOISE)
+SCRIPTS_DIR = os.path.join('tpudenoise_torch', 'experiments', 'scripts')
+# the subprocesses' time limit
+SCRIPT_TIMEOUT = 300
+
+
+def _script(repo: str, work: str, name: str, args, log_name: str):
+    """Start `bash tpudenoise_torch/experiments/scripts/<name> args` in
+    work, its output to work/<log_name>, the repo on PYTHONPATH and this
+    interpreter's directory first on PATH (the drivers call `python`)."""
+    import subprocess
+    env = {**os.environ, 'PYTHONPATH': repo,
+           'PATH': os.path.dirname(sys.executable) + os.pathsep
+           + os.environ.get('PATH', '')}
+    out = open(os.path.join(work, log_name), 'w')
+    proc = subprocess.Popen(['bash', os.path.join(repo, SCRIPTS_DIR, name),
+                             *args], cwd=work, env=env, stdout=out,
+                            stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def _finish(proc, out, what: str) -> str:
+    """Wait for a started script; its output, or an AssertionError with
+    its tail when it failed."""
+    try:
+        rc = proc.wait(timeout=SCRIPT_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    with open(out.name) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f'{what} exited {rc}:\n{text[-3000:]}')
+    return text
+
+
+def proposals_5i(card: str, loop: dict) -> tuple:
+    """The seeded res101's proposals on the dataset phase's LOOP_IMAGES
+    images: forward_test in chunks of 8 (bf16, bucket 608x1024, scale 1),
+    each image's valid rois rescaled to image coordinates; kernel 3 and
+    the walk once a chunk, held to their plain versions.  Returns the
+    proposal list and the e2e entry."""
+    from tpudenoise_torch.ops.resize import prep_on_device
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = loop['root']
+    imdb = rrData('test', config=cfg, pixel_dir=loop['pixel_dir'])
+    model = FasterRCNN('res101', num_classes=imdb.num_classes,
+                       cfg=default_config())
+    params = seeded(model)
+    model.to(DEV)
+    params = {k: v.to(DEV) for k, v in params.items()}
+    geom = torch.tensor([[H, W, H, W, 1.0]] * B, device=DEV)
+    proposals = []
+    zero_counts()
+    with taped() as calls:
+        t0 = time.perf_counter()
+        for c in range(0, imdb.num_images, B):
+            raw = torch.from_numpy(np.stack([
+                read_bgr(imdb.image_path_at(i)) for i in range(c, c + B)])
+            ).to(DEV)
+            imgs = prep_on_device(raw.float(), geom, model.cfg.PIXEL_MEANS,
+                                  BUCKET)
+            out = model.forward_test(params, imgs, geom[:, 2:])
+            rois = out['rois'] / geom[:, 4, None, None]
+            for j in range(B):
+                proposals.append(rois[j][out['roi_mask'][j]].cpu().numpy()
+                                 .astype(np.float32))
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    chunks = imdb.num_images // B
+    launches = {k: counts[k] for k in NMS_KERNELS}
+    if launches != {MASKS: chunks, WALK: chunks}:
+        raise AssertionError(f'proposals: launches {launches}')
+    held = hold_to_plain(calls, 'rpn proposals (res101 forward_test)', card)
+    del calls, model, params
+    n = [len(p) for p in proposals]
+    if min(n) == 0 or not all(np.isfinite(p).all() for p in proposals):
+        raise AssertionError(f'proposals: {n} boxes an image')
+    log(f'rpn proposals: seeded res101 forward_test over {imdb.num_images} '
+        f'images of {H}x{W} in {wall:.2f} s, {min(n)}-{max(n)} boxes an '
+        f'image; launches {json.dumps(launches)}  [{card}]')
+    return proposals, dict(wall_s=wall, boxes=[min(n), max(n)],
+                           launches=launches, held=held)
+
+
+def recall_5i(card: str, loop: dict, proposals) -> dict:
+    """evaluate_recall of the proposals on the card and on the CPU: the
+    same ar, recalls and matched overlaps."""
+    cfg = default_config()
+    cfg.DATA_DIR = cfg.ROOT_DIR = loop['root']
+    imdb = rrData('test', config=cfg, pixel_dir=loop['pixel_dir'])
+    res = {}
+    for dev in (DEV, 'cpu'):
+        imdb.device = dev
+        _ = imdb.roidb
+        res[dev], t = _timed(imdb.evaluate_recall, proposals)
+        res[dev]['s'] = t
+    a, b = res[DEV], res['cpu']
+    if not (a['ar'] == b['ar'] and np.array_equal(a['recalls'], b['recalls'])
+            and np.array_equal(a['gt_overlaps'], b['gt_overlaps'])
+            and np.isfinite(a['ar'])):
+        raise AssertionError(f'evaluate_recall: card {a} against CPU {b}')
+    log(f'evaluate_recall over {imdb.num_images} images: AR {a["ar"]:.4f}, '
+        f'recall@0.5 {a["recalls"][0]:.4f}, the gt boxes\' best IoU '
+        f'{a["gt_overlaps"].min():.4f}-{a["gt_overlaps"].max():.4f}, card '
+        f'{a["s"]:.3f} s, CPU '
+        f'{b["s"]:.3f} s; card and CPU equal  [{card}]')
+    return dict(ar=float(a['ar']), recalls=a['recalls'].tolist(),
+                card_s=a['s'], cpu_s=b['s'], launches={})
+
+
+def rpn_training_5i(card: str, loop: dict, rpn_file: str) -> dict:
+    """The rpn proposal method through training: rrData trainval over the
+    dataset phase's images (the test list copied) with its proposals,
+    `get_training_roidb` (flips) and `filter_roidb` built with the IoU on
+    the card and on the CPU (the same rows and the same images kept),
+    then `train_net` RPN_ITERS iterations on the card: finite losses, the
+    batches' boxes the gt rows only, every launch held to its plain
+    version."""
+    import os.path as osp
+    import shutil
+
+    from tpudenoise_torch.core.config import cfg_from_file
+    from tpudenoise_torch.data.roidb import filter_roidb, get_training_roidb
+    from tpudenoise_torch.train.solver import train_net
+    root = loop['root']
+    sets = osp.join(root, '6thfloorData', '6thFloorTest', 'Annotations_cvat',
+                    '6thFloorTest', 'ImageSets', 'Main')
+    shutil.copy(osp.join(sets, 'test.txt'), osp.join(sets, 'trainval.txt'))
+    cfg = cfg_from_file(osp.join(default_config().ROOT_DIR, 'experiments',
+                                 'cfgs', 'res101.yml'),
+                        into=default_config())
+    cfg.DATA_DIR = cfg.ROOT_DIR = root
+    cfg.TRAIN.DISPLAY = 1
+    built = {}
+    for dev in (DEV, 'cpu'):
+        imdb = rrData('trainval', config=cfg, pixel_dir=loop['pixel_dir'])
+        imdb.device = dev
+        imdb.config['rpn_file'] = rpn_file
+        imdb.set_proposal_method('rpn')
+        (roidb, t) = _timed(get_training_roidb, imdb, TRAIN_NOISE, cfg)
+        built[dev] = (imdb, roidb, filter_roidb(roidb, cfg), t)
+    (imdb, roidb, kept, t_card), (_, roidb_cpu, kept_cpu, t_cpu) = (
+        built[DEV], built['cpu'])
+    for a, b in zip(roidb, roidb_cpu):
+        for k in ('boxes', 'gt_classes', 'gt_overlaps', 'max_overlaps'):
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f'rpn roidb: {k} differs card and CPU')
+    images = [(e['image'], e['flipped']) for e in kept]
+    if (len(roidb) != len(roidb_cpu)
+            or images != [(e['image'], e['flipped']) for e in kept_cpu]):
+        raise AssertionError('filter_roidb keeps other images card and CPU')
+    rows = sum(len(e['boxes']) for e in roidb)
+    gt_rows = sum(int((e['gt_classes'] != 0).sum()) for e in roidb)
+    model = FasterRCNN('res101', num_classes=imdb.num_classes, cfg=cfg)
+    out_dir = osp.join(root, 'output_rpn')
+    path = f'train res101 {TRAIN_NOISE} rpn roidb --iters {RPN_ITERS}'
+    zero_counts()
+    with taped(TRAIN_TAPPED) as calls, recording() as (seen, _):
+        _, wall = _timed(lambda: train_net(
+            model, imdb, kept, list(kept), out_dir, osp.join(root, 'tb_rpn'),
+            max_iters=RPN_ITERS, noise=TRAIN_NOISE, config=cfg,
+            bucket=BUCKET, device=DEV))
+    launches = check_train_launches(launch_counts(), 'res101', TRAIN_NOISE,
+                                    len(seen), path)
+    held = hold_train_to_plain(calls, path, card)
+    del calls
+    losses = [x['losses'] for x in seen]
+    if len(seen) != RPN_ITERS or not all(
+            np.isfinite(v) for x in losses for v in x.values()):
+        raise AssertionError(f'{path}: losses {losses}')
+    # the fixture draws 1-3 boxes an image: a batch holds those and none
+    # of the image's hundreds of proposal rows
+    for x in seen:
+        n_gt = int(x['batch']['gt_mask'].sum())
+        if not 1 <= n_gt <= 3:
+            raise AssertionError(f'{path}: {n_gt} gt boxes in a batch')
+    log(f'rpn roidb: {len(roidb)} entries (flips), {rows} rows of which '
+        f'{gt_rows} gt, built in {t_card:.3f} s with the IoU on the card '
+        f'({t_cpu:.3f} s on the CPU, the same rows); filter_roidb keeps '
+        f'{len(kept)}, the same images card and CPU; {path}: '
+        f'{wall:.2f} s, total_loss '
+        + ', '.join(f'{x["total_loss"]:.4f}' for x in losses)
+        + f'; launches {json.dumps(launches)}  [{card}]')
+    return dict(entries=len(roidb), kept=len(kept), rows=rows,
+                gt_rows=gt_rows, roidb_card_s=t_card, roidb_cpu_s=t_cpu,
+                wall_s=wall, losses=losses, launches=launches, held=held)
+
+
+def _same_dets(a, b, what: str, ordered: bool = True) -> int:
+    """all_boxes a and b equal bit for bit (unordered: each image's rows
+    as a set); returns the detections of the classes past background."""
+    if len(a) != len(b):
+        raise AssertionError(f'{what}: {len(a)} against {len(b)} classes')
+    n = 0
+    for c, (x, y) in enumerate(zip(a, b)):
+        for i, (p, q) in enumerate(zip(x, y)):
+            p, q = (np.asarray(v).reshape(-1, 5) for v in (p, q))
+            if not ordered:
+                p, q = (v[np.lexsort(v.T[::-1])] for v in (p, q))
+            if p.shape != q.shape or not np.array_equal(p, q):
+                raise AssertionError(f'{what}: class {c} image {i} differs')
+            n += len(p) if c else 0
+    return n
+
+
+def reval_5i(card: str, cli: dict, out_dir: str) -> dict:
+    """cli.reval --nms on the detections in out_dir: on the card (kernel 3
+    and the walk, held to their plain versions), and on the CPU with
+    USE_NATIVE_NMS set (the host C++ NMS) and unset (nms_py); the kept
+    boxes equal in all three.  Then apply_nms_all's time on each route
+    (host clock, the card synchronized)."""
+    import pickle
+
+    import tpudenoise_torch.core.config as config
+    from tpudenoise_torch.cli import reval
+    with open(os.path.join(out_dir, 'detections.pkl'), 'rb') as f:
+        all_boxes = pickle.load(f)
+    kept, aps, out = {}, {}, {}
+
+    def recorder(name):
+        def wrap(fn):
+            def call(*a, **k):
+                kept[name] = fn(*a, **k)
+                return kept[name]
+            return call
+        return wrap
+
+    routes = (('cuda', DEV, True), ('cpu native', 'cpu', True),
+              ('cpu nms_py', 'cpu', False))
+    for name, dev, native_ in routes:
+        def main_(argv, native_=native_):
+            config.cfg.DATA_DIR = config.cfg.ROOT_DIR = cli['root']
+            config.cfg.USE_NATIVE_NMS = native_
+            return reval.main(argv)
+        with taped() as calls, patched(reval, 'apply_nms_all',
+                                       recorder(name)):
+            aps[name], wall, counts, _ = run_cli(main_, [
+                out_dir, '--imdb', 'rrData_2021_test', '--nms', '--device',
+                dev])
+        n_launch = {k: counts[k] for k in NMS_KERNELS}
+        if (dev == 'cpu') == any(n_launch.values()):
+            raise AssertionError(f'reval --nms {name}: launches {n_launch}')
+        held = hold_to_plain(calls, f'cli.reval --nms ({name})', card) \
+            if dev != 'cpu' else {}
+        del calls
+        out[name] = dict(wall_s=wall, aps=aps[name], launches=n_launch,
+                         held=held)
+    # the card and the host C++ NMS take tied scores in input order, so
+    # their rows agree in order too; nms_py takes ties in the order its
+    # argsort leaves, so its kept rows are compared as a set, and its APs
+    # (voc_eval sorts ties by input order) only for being finite
+    n = _same_dets(kept['cuda'], kept['cpu native'], 'reval --nms card '
+                   'against the host C++ NMS')
+    _same_dets(kept['cuda'], kept['cpu nms_py'], 'reval --nms card against '
+               'nms_py', ordered=False)
+    if aps['cuda'] != aps['cpu native'] or not all(
+            np.isfinite(a) for a in aps['cpu nms_py']):
+        raise AssertionError(f'reval --nms APs {aps}')
+    from tpudenoise_torch.ops.native import nms_host
+    from tpudenoise_torch.ops.nms import nms_dets, nms_py
+    fns = {'cuda': lambda d, t: nms_dets(d, t, DEV),
+           'cpu native': nms_host, 'cpu nms_py': nms_py}
+    thresh = default_config().TEST.NMS
+    dets = [np.asarray(d) for per in all_boxes for d in per
+            if np.asarray(d).size]
+    calls_n, times = len(dets), {}
+    for name, fn in fns.items():
+        per = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for d in dets:
+                fn(d, thresh)
+            torch.cuda.synchronize()
+            per.append(time.perf_counter() - t0)
+        times[name] = min(per) * 1e3
+    log(f'cli.reval --nms over {calls_n} (class, image) NMS calls: the '
+        f'same {n} kept boxes on the card, the host C++ NMS and nms_py '
+        f'(order and APs equal card and C++); '
+        f'AP@.5 {aps["cuda"][0]:.4f}; NMS time (host clock, best of 3): '
+        + ', '.join(f'{k} {v:.2f} ms' for k, v in times.items())
+        + f'  [{card}]')
+    return {f'cli.reval --nms ({k})': dict(v, nms_ms=times[k],
+                                            nms_calls=calls_n)
+            for k, v in out.items()}
+
+
+def start_drivers(cli: dict, snapshot: str, work: str) -> dict:
+    """Start test_faster_rcnn.sh and train_faster_rcnn.sh in work (a
+    scratch working directory) on the snapshot placed where both look
+    (the train driver then takes its NET_FINAL skip), with a copy of
+    experiments/cfgs/res101.yml that points DATA_DIR and ROOT_DIR at the
+    CLI phase's dataset.  Returns the started processes."""
+    import os.path as osp
+    repo = default_config().ROOT_DIR
+    cfgs = osp.join(work, 'experiments', 'cfgs')
+    os.makedirs(cfgs)
+    with open(osp.join(repo, 'experiments', 'cfgs', 'res101.yml')) as f:
+        text = f.read()
+    with open(osp.join(cfgs, 'res101.yml'), 'w') as f:
+        f.write(text + f'DATA_DIR: "{cli["root"]}"\n'
+                       f'ROOT_DIR: "{cli["root"]}"\n')
+    final = osp.join(work, 'output', 'res101', 'rrData_2021_train',
+                     'default', 'res101_faster_rcnn_iter_5000')
+    os.makedirs(osp.dirname(final))
+    for ext in ('.pt', '.pkl'):
+        os.symlink(snapshot + ext, final + ext)
+    return {'test': _script(repo, work, 'test_faster_rcnn.sh',
+                            TEST_DRIVER_ARGS, 'test_driver.log'),
+            'train': _script(repo, work, 'train_faster_rcnn.sh',
+                             TEST_DRIVER_ARGS, 'train_driver.log')}
+
+
+def start_convert(work: str, src: str) -> dict:
+    """Start convert_vgg16.sh on src in work."""
+    return {'convert': _script(default_config().ROOT_DIR, work,
+                               'convert_vgg16.sh', (src, 'vgg16_script.npz'),
+                               'convert_driver.log')}
+
+
+def test_driver_5i(card: str, cli: dict, work: str, started: dict,
+                   t_start: float) -> tuple:
+    """test_faster_rcnn.sh's detections against a direct cli.test call with
+    the same arguments from the same directory (taped, every launch held
+    to its plain version): equal bit for bit.  Returns the e2e entry and
+    the output directory."""
+    import os.path as osp
+    import pickle
+
+    from tpudenoise_torch.cli import test as cli_test
+    text = _finish(*started['test'], 'test_faster_rcnn.sh')
+    script_s = time.perf_counter() - t_start
+    if 'Restored the params of snapshot' not in text:
+        raise AssertionError(f'test_faster_rcnn.sh did not test the '
+                             f'snapshot:\n{text[-2000:]}')
+    cfg = default_config()
+    cfg.ROOT_DIR = cli['root']
+    cfg.EXP_DIR = 'res101'
+    out_dir = get_output_dir('rrData_2021_test', 'default', cfg)
+    with open(osp.join(out_dir, 'detections.pkl'), 'rb') as f:
+        script_dets = pickle.load(f)
+    argv = ['--model', osp.join('output', 'res101', 'rrData_2021_train',
+                                'default', 'res101_faster_rcnn_iter_5000'),
+            '--imdb', 'rrData_2021_test', '--cfg',
+            osp.join('experiments', 'cfgs', 'res101.yml'), '--net',
+            'res101', '--tag', 'default', '--noise', LOOP_NOISE, '--set',
+            'ANCHOR_SCALES', '[8,16,32]', 'ANCHOR_RATIOS', '[0.5,1,2]']
+    with contextlib.chdir(work), taped() as calls:
+        aps, wall, counts, _ = run_cli(cli_test.main, argv)
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    n_img = CLI_IMAGES
+    if launches != {'fused_sap_median_batched': n_img, MASKS: 2 * n_img,
+                    WALK: 2 * n_img}:
+        raise AssertionError(f'cli.test (direct): launches {launches}')
+    held = hold_to_plain(calls, 'cli.test (the test driver\'s arguments)',
+                         card)
+    del calls
+    with open(osp.join(out_dir, 'detections.pkl'), 'rb') as f:
+        direct = pickle.load(f)
+    n = _same_dets(script_dets, direct, 'test_faster_rcnn.sh against the '
+                   'direct cli.test')
+    if len(aps) != 10 or not all(np.isfinite(a) for a in aps):
+        raise AssertionError(f'cli.test (direct): APs {aps}')
+    log(f'test_faster_rcnn.sh {" ".join(TEST_DRIVER_ARGS)} on the '
+        f'{CONVERT_ITERS}-iteration snapshot (at ..._iter_5000), '
+        f'{n_img} images of {H}x{W}: done {script_s:.2f} s after its start '
+        f'(a process of its own); its {n} detections equal the direct '
+        f'cli.test\'s bit for bit (main() {wall:.2f} s, '
+        f'{n_img / wall:.1f} img/s); launches {json.dumps(launches)}  '
+        f'[{card}]')
+    return dict(script_s=script_s, wall_s=wall, img_per_s=n_img / wall,
+                aps=aps, detections=n, launches=launches, held=held), out_dir
+
+
+def direct_convert_5i(work: str, src: str) -> float:
+    """cli.convert called directly, in process, on the convert driver's
+    source (while the drivers run); returns its wall seconds."""
+    import io
+    import os.path as osp
+
+    from tpudenoise_torch.cli import convert as cli_convert
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, wall = _timed(cli_convert.main, [
+            '--src', src, '--net', 'vgg16', '--out',
+            osp.join(work, 'vgg16_direct.npz')])
+    return wall
+
+
+def convert_driver_5i(card: str, work: str, started: dict, t_start: float,
+                      source_mb: float, direct_s: float) -> dict:
+    """convert_vgg16.sh's .npz against the direct cli.convert's, array for
+    array bit-equal; the train driver took its NET_FINAL skip (no
+    trainval call)."""
+    import os.path as osp
+    text = _finish(*started['train'], 'train_faster_rcnn.sh')
+    if 'tpudenoise_torch.cli.trainval' in text:
+        raise AssertionError('train_faster_rcnn.sh trained though its '
+                             'NET_FINAL exists')
+    _finish(*started['convert'], 'convert_vgg16.sh')
+    done_s = time.perf_counter() - t_start
+    with np.load(osp.join(work, 'vgg16_script.npz')) as a, \
+            np.load(osp.join(work, 'vgg16_direct.npz')) as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f'convert_vgg16.sh: entries {a.files} '
+                                 f'against {b.files}')
+        for k in a.files:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f'convert_vgg16.sh: {k} differs')
+        entries = len(a.files)
+    log(f'convert_vgg16.sh on a seeded full-width vgg16 V2 checkpoint '
+        f'({source_mb:.1f} MB): {entries} entries, bit-equal to the direct '
+        f'cli.convert\'s (in process, {direct_s:.2f} s, '
+        f'{source_mb / direct_s:.1f} MB/s); the driver\'s process done '
+        f'{done_s:.2f} s after its start, beside the phase\'s other work; '
+        f'train_faster_rcnn.sh took its NET_FINAL skip  [{card}]')
+    return dict(entries=entries, source_mb=source_mb, done_s=done_s,
+                direct_s=direct_s, launches={})
+
+
+def example_smoke_5i(card: str) -> dict:
+    """tpudenoise_torch/examples/smoke.py's main() in process: kernel 1
+    once, kernel 3 and the walk twice (nms_fixpoint and nms_packed), the
+    smoke's own card-against-CPU checks, every launch held to its plain
+    version."""
+    import io
+
+    from tpudenoise_torch.examples import smoke as example_smoke
+    buf = io.StringIO()
+    with taped() as calls, contextlib.redirect_stdout(buf):
+        rc, wall, counts, _ = run_cli(lambda argv: example_smoke.main(),
+                                      [])
+    if rc != 0 or 'SMOKE OK' not in buf.getvalue():
+        raise AssertionError(f'examples/smoke.py: {rc}\n{buf.getvalue()}')
+    launches = {k: counts[k] for k in ('fused_sap_median_batched',)
+                + NMS_KERNELS}
+    if launches != {'fused_sap_median_batched': 1, MASKS: 2, WALK: 2}:
+        raise AssertionError(f'examples/smoke.py: launches {launches}')
+    # the smoke's CPU half calls the same wrappers: hold the card's calls
+    held = hold_to_plain({k: [c for c in v if c[2].is_cuda]
+                          for k, v in calls.items()}, 'examples/smoke.py',
+                         card)
+    print(buf.getvalue(), end='', flush=True)
+    log(f'examples/smoke.py: SMOKE OK in {wall:.2f} s; launches '
+        f'{json.dumps(launches)}  [{card}]')
+    return dict(wall_s=wall, launches=launches, held=held)
+
+
+def train_snapshot(tag: str, iters: int) -> str:
+    """The prefix of the snapshot that `train_cli` writes with tag after
+    iters iterations (under build/chip_smoke_train)."""
+    import os.path as osp
+    cfg = default_config()
+    cfg.ROOT_DIR = osp.join(cfg.ROOT_DIR, 'build', 'chip_smoke_train')
+    cfg.EXP_DIR = 'res101'
+    return osp.join(get_output_dir('rrData_2021_trainval', tag, cfg),
+                    f'res101_faster_rcnn_iter_{iters}')
+
+
+# the seeded vgg16 source of convert_vgg16.sh, written in a process of its
+# own (numpy and the checkpoint writer only)
+WRITE_VGG16 = ('import sys; from tpudenoise_torch.data.synthetic import '
+               'write_vgg16_checkpoint; write_vgg16_checkpoint(sys.argv[1], '
+               'seed=19)')
+
+
+def slice19_phase(card: str, cli: dict, loop: dict, snapshot: str) -> dict:
+    """Phase 5i: the rpn proposal method (proposals of a seeded res101,
+    evaluate_recall card against CPU, an rpn training roidb and two
+    iterations on the card), examples/smoke.py, cli.reval --nms on three
+    routes, and the three drivers of tpudenoise_torch/experiments/scripts
+    run for real in a scratch directory, as processes beside this one's
+    card work: the test driver on `snapshot` (a 2-iteration cli.trainval
+    snapshot) placed where it looks, the train driver on its NET_FINAL
+    skip, the convert driver on a seeded full-width vgg16 that another
+    process writes first (the direct cli.convert runs in this process
+    while the drivers do)."""
+    import os.path as osp
+    import pickle
+    import shutil
+    import subprocess
+    import threading
+    t0 = time.perf_counter()
+    if not osp.exists(snapshot + '.pt'):
+        raise AssertionError(f'phase 5i: no snapshot {snapshot}.pt')
+    repo = default_config().ROOT_DIR
+    work = osp.join(repo, 'build', 'chip_smoke_scripts')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    src = osp.join(work, 'vgg_16.ckpt')
+    log_file = open(osp.join(work, 'vgg16_writer.log'), 'w')
+    started = {'writer': (subprocess.Popen(
+        [sys.executable, '-c', WRITE_VGG16, src], cwd=work,
+        env={**os.environ, 'PYTHONPATH': repo}, stdout=log_file,
+        stderr=subprocess.STDOUT), log_file)}
+    started.update(start_drivers(cli, snapshot, work))
+    t_converts = []
+
+    def then_convert():
+        # waiting on the writer releases the GIL
+        if started['writer'][0].wait() == 0:
+            t_converts.append(time.perf_counter())
+            started.update(start_convert(work, src))
+
+    chain = threading.Thread(target=then_convert)
+    chain.start()
+    out = {}
+    try:
+        proposals, out['rpn proposals'] = proposals_5i(card, loop)
+        rpn_file = osp.join(loop['root'], 'rpn_proposals.pkl')
+        with open(rpn_file, 'wb') as f:
+            pickle.dump(proposals, f)
+        out['evaluate_recall'] = recall_5i(card, loop, proposals)
+        out['train rpn roidb'] = rpn_training_5i(card, loop, rpn_file)
+        out['examples/smoke.py'] = example_smoke_5i(card)
+        # the direct cli.convert while the drivers run
+        chain.join()
+        _finish(*started['writer'], 'the vgg16 source writer')
+        direct_s = direct_convert_5i(work, src)
+        out['test_faster_rcnn.sh'], out_dir = test_driver_5i(
+            card, cli, work, started, t0)
+        out.update(reval_5i(card, cli, out_dir))
+        out['convert_vgg16.sh'] = convert_driver_5i(
+            card, work, started, t_converts[0],
+            osp.getsize(src + '.data-00000-of-00001') / 1e6, direct_s)
+    finally:
+        chain.join()
+        for proc, f in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    wall = time.perf_counter() - t0
+    log(f'phase 5i: {wall:.1f} s (budget {PHASE_5I_S:.0f} s'
+        + (', over it' if wall > PHASE_5I_S else '') + f')  [{card}]')
+    return out
+
+
 # ------------------------------------------------ slice 17: phase 5g --
 
 # the data-parallel phase: training iterations a run, the timed
@@ -4593,6 +5163,11 @@ def main() -> int:
     # phase 5h before 5d's profiler sessions too
     e2e.update(slice18_phase(card, res))
     done('5h checkpoint sources, XLA route')
+    # phase 5i after 5h (whose 2-iteration cli.trainval snapshot the test
+    # driver tests), before 5d's profiler sessions
+    e2e.update(slice19_phase(card, cli, loop,
+                             train_snapshot('converted', CONVERT_ITERS)))
+    done('5i proposals, reval routes, drivers, library smoke')
     e2e.update(shape_phase(card, rows))
     done('5d shapes')
     prof = profile_paths(vgg, card, NOISES)
@@ -4683,9 +5258,29 @@ def only_5g() -> int:
     return 0
 
 
+def only_5i() -> int:
+    """`python3 chip_smoke.py --only-5i`: the build and phase 5i alone (the
+    dataset loop, the CLI and training inputs made first, as the whole run
+    makes them), for working on it; prints no result line."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    set_matmul_precision()
+    card = card_line()
+    cuda_build.build(SOURCES)
+    loop = dataset_loop(card)
+    cli = cli_inputs()
+    inp = train_inputs()
+    train_cli(card, inp, 'res101', TRAIN_NOISE, CONVERT_ITERS, 'scripts')
+    slice19_phase(card, cli, loop, train_snapshot('scripts', CONVERT_ITERS))
+    return 0
+
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--rank']:
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:] == ['--only-5g']:
         sys.exit(only_5g())
+    if sys.argv[1:] == ['--only-5i']:
+        sys.exit(only_5i())
     sys.exit(main())

@@ -102,7 +102,11 @@ def test_new_modules_are_walked():
             'tpudenoise_torch.core.mesh',
             'tpudenoise_torch.parallel.dp',
             'tpudenoise_torch.parallel.spatial',
-            'tpudenoise_torch.models.tf_checkpoint'} <= names
+            'tpudenoise_torch.models.tf_checkpoint',
+            'tpudenoise_torch.ops.native',
+            'tpudenoise_torch.utils.visualization',
+            'tpudenoise_torch.data.mcg_munge',
+            'tpudenoise_torch.examples.smoke'} <= names
 
 
 def test_new_modules_import_without_tensorflow_cv2_pil_or_yaml(tmp_path):
@@ -310,6 +314,60 @@ def test_training_runs_without_cv2_pil_yaml_optax_or_orbax(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert 'TRAIN OK []' in res.stdout, res.stdout[-2000:]
     assert '--imdbval' in res.stdout
+
+
+def test_host_tools_run_without_cv2_or_pil(tmp_path):
+    """With jax, flax, `tpudenoise`, cv2 and PIL refused (as on the GPU
+    machine): the host C++ NMS builds and runs, `draw_bounding_boxes`
+    draws, the rpn roidb and proposal recall run on the CPU, and
+    `tpudenoise_torch/examples/smoke.py` exits non-zero without a GPU and
+    prints no SMOKE OK."""
+    refused = REFUSED + ('cv2', 'PIL')
+    code = textwrap.dedent(f'''
+        import importlib.abc, pickle, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split('.')[0] in {refused!r}:
+                    raise ImportError('refused: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import numpy as np
+        from tpudenoise_torch.core.config import default_config
+        from tpudenoise_torch.data import synthetic
+        from tpudenoise_torch.data.voc_like import rrData
+        from tpudenoise_torch.ops.native import nms_host
+        from tpudenoise_torch.utils.visualization import draw_bounding_boxes
+        dets = np.array([[0, 0, 10, 10, .9], [1, 1, 10, 10, .8],
+                         [20, 20, 30, 30, .7]], np.float32)
+        assert nms_host(dets, 0.5) == [0, 2]
+        img = draw_bounding_boxes(np.zeros((40, 50, 3)),
+                                  np.array([[5, 15, 30, 35, 1]]))
+        assert img[15, 5:31].any() and img.dtype == np.uint8
+        root = {str(tmp_path)!r}
+        pdir, gt = synthetic.write_rrdata(root, 2, size=(60, 80), seed=1,
+                                          image_set='trainval')
+        cfg = default_config()
+        cfg.DATA_DIR = cfg.ROOT_DIR = root
+        d = rrData('trainval', config=cfg, pixel_dir=pdir)
+        d.device = 'cpu'
+        d.config['rpn_file'] = root + '/rpn.pkl'
+        with open(d.config['rpn_file'], 'wb') as f:
+            pickle.dump([np.asarray(gt[i], np.float32) + 1
+                         for i in d.image_index], f)
+        d.set_proposal_method('rpn')
+        assert 0 < d.evaluate_recall()['ar'] <= 1
+        bad = [m for m in sys.modules if m.split('.')[0] in {refused!r}]
+        print('HOST OK', bad)
+    ''')
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'HOST OK []' in res.stdout, res.stdout[-2000:]
+    res = subprocess.run([sys.executable, 'tpudenoise_torch/examples/'
+                          'smoke.py'], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0 and 'SMOKE OK' not in res.stdout
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -303,6 +303,19 @@ def _postprocess_inputs(seed, b=2, c=4, r=300):
     return boxes, scores, valid
 
 
+def test_packed_fixpoint_takes_one_unbatched_problem():
+    """One (N, 4) problem with no validity mask (the library smoke's
+    call, `examples/smoke.py`): the packed route equals the dense one."""
+    boxes, scores, _ = _postprocess_inputs(5)
+    args = (torch.from_numpy(boxes[0, 0]), torch.from_numpy(scores[0, 0]),
+            0.7, 100)
+    pk, pm = tnms.nms_fixpoint_packed(*args)
+    dk, dm = tnms.nms_fixpoint(*args)
+    assert pk.shape == (100,) and pm.sum() > 0
+    np.testing.assert_array_equal(pk.numpy(), dk.numpy())
+    np.testing.assert_array_equal(pm.numpy(), dm.numpy())
+
+
 @pytest.mark.parametrize('thresh', [0.3, 0.7])
 def test_packed_fixpoint_equals_dense_and_oracle(thresh):
     """`nms_fixpoint_packed` (the card's route: pad 300 -> 320, kernel 3,

@@ -2,10 +2,10 @@
 host-facing NMS (`ops/nms.nms_dets`) against the JAX package's, on the
 CPU.
 
-* `apply_nms_all` equals JAX's with its numpy oracle `nms_py`
-  (`cfg.USE_NATIVE_NMS` off: the native module is not ported) row for
+* `apply_nms_all` on the CPU (the port's `cfg.USE_NATIVE_NMS` left set:
+  its host C++ NMS) equals JAX's with its numpy oracle `nms_py` row for
   row, on dets without tied scores, degenerate boxes and empty lists
-  included;
+  included (both flag values: `tests/test_torch_native.py`);
 * on tied scores `nms_dets` takes the tied boxes in input order (a
   stable sort), where `nms_py`'s `argsort()[::-1]` takes them in the
   order numpy's sort leaves: held against a greedy NMS over the stable

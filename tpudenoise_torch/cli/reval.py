@@ -7,14 +7,16 @@ dataset's evaluation without the network, optionally re-applying NMS.
 
 The same arguments as the JAX CLI, plus `--device` (default `cuda`, which
 needs a CUDA GPU and never falls back to the CPU).  `--nms` re-applies
-NMS at `cfg.TEST.NMS` per class and image through `ops.nms.nms_dets`
-(kernel 3 and the walk on the card), after dropping degenerate boxes
-(x2 <= x1 or y2 <= y1).  The JAX CLI picks its native C++ host NMS when
-`cfg.USE_NATIVE_NMS` is set; that module (`ops/native.py`) is not
-ported, so the flag has no meaning here: every call takes `nms_dets`,
-which keeps `nms_py`'s boxes (on tied scores see `nms_dets`).  The
-dataset comes from `get_imdb` with the module-level `cfg`
-(`core/config.py`), as the JAX CLI's does.
+NMS at `cfg.TEST.NMS` per class and image, after dropping degenerate
+boxes (x2 <= x1 or y2 <= y1).  On `--device cuda` it runs as
+`ops.nms.nms_dets`, kernel 3 and the walk on the card.  On `--device
+cpu` it follows `cfg.USE_NATIVE_NMS` as the JAX CLI does: set (the
+default), the host C++ NMS `ops.native.nms_host`; unset, the numpy
+`ops.nms.nms_py`.  All three keep the same boxes where no two scores
+tie; on tied scores `nms_dets` and `nms_host` take the tied boxes in
+input order, `nms_py` in the order numpy's sort leaves.  The dataset
+comes from `get_imdb` with the module-level `cfg` (`core/config.py`), as
+the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -39,11 +41,25 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def nms_function(device):
+    """The NMS of `--nms` on device: `nms_dets` on the card; on the CPU
+    `nms_host` under cfg.USE_NATIVE_NMS, else `nms_py`."""
+    import torch
+
+    from tpudenoise_torch.core.config import cfg
+    from tpudenoise_torch.ops.native import nms_host
+    from tpudenoise_torch.ops.nms import nms_dets, nms_py
+    if torch.device(device).type != 'cpu':
+        return lambda dets, thresh: nms_dets(dets, thresh, device)
+    return nms_host if cfg.USE_NATIVE_NMS else nms_py
+
+
 def apply_nms_all(all_boxes, thresh: float, device='cuda'):
     """NMS per class and image over all_boxes[class][image] (N, 5) dets
-    (ref lib/model/test.py:135-163 apply_nms): degenerate boxes dropped
-    first, the kept rows copied in greedy order."""
-    from tpudenoise_torch.ops.nms import nms_dets
+    (ref lib/model/test.py:135-163 apply_nms) through `nms_function`:
+    degenerate boxes dropped first, the kept rows copied in greedy
+    order."""
+    nms_fn = nms_function(device)
     out = [[[] for _ in r] for r in all_boxes]
     for c, per_image in enumerate(all_boxes):
         for i, dets in enumerate(per_image):
@@ -54,7 +70,7 @@ def apply_nms_all(all_boxes, thresh: float, device='cuda'):
             dets = dets[ok]
             if dets.size == 0:
                 continue
-            out[c][i] = dets[nms_dets(dets, thresh, device)].copy()
+            out[c][i] = dets[nms_fn(dets, thresh)].copy()
     return out
 
 

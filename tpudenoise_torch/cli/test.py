@@ -22,10 +22,14 @@ ranks (rank 0 writes detections.pkl and evaluates):
 which both loops take through noise buckets.  `--fast-rng` draws the
 noise from the counter hash; `--compute-id` reports the backbone's TwoNN
 intrinsic dimension per probe layer after the loop.  `--device cuda` (the
-default) needs a CUDA GPU and never falls back to the CPU.  Weights come as a `.npz` in the shared layout (written by
+default) needs a CUDA GPU and never falls back to the CPU.  Weights come
+as a `.npz` in the shared layout (written by
 `tpudenoise.models.convert.save_params_npz` on a host with JAX, or by
-`tpudenoise_torch.models.convert.save_params_npz`); a backbone-only file
-is merged over the seeded init.  On a machine without cv2, the dataset's
+`tpudenoise_torch.models.convert.save_params_npz`; a backbone-only file
+is merged over the seeded init) or as the prefix of a snapshot of the
+port's `cli.trainval` (`PREFIX.pt`), the form
+`tpudenoise_torch/experiments/scripts/test_faster_rcnn.sh` passes.  On a
+machine without cv2, the dataset's
 pixels come from `python -m tpudenoise_torch.data.cache_pixels`.
 """
 
@@ -46,8 +50,10 @@ def parse_args(argv=None):
                    help='cfg file (the YAML subset of '
                         'tpudenoise_torch.utils.cfg_reader)')
     p.add_argument('--model', default=None,
-                   help='.npz weights (random if unset; orbax snapshots '
-                        'must be converted to .npz on a host with JAX)')
+                   help='.npz weights, or the prefix of a cli.trainval '
+                        'snapshot (PREFIX.pt) (random if unset; orbax '
+                        'snapshots must be converted to .npz on a host '
+                        'with JAX)')
     p.add_argument('--imdb', dest='imdb_name', default='voc_2007_test')
     p.add_argument('--comp', dest='comp_mode', action='store_true')
     p.add_argument('--num_dets', dest='max_per_image', type=int,
@@ -101,11 +107,26 @@ def resolve_device(name: str):
 
 
 def load_params(model, model_path, net, generator, image_shape=(608, 1024)):
-    """The seeded init, with the `.npz` at model_path merged over it."""
+    """The seeded init with the `.npz` at model_path merged over it, or
+    the params of the port's training snapshot `model_path.pt` (the
+    prefix `cli.trainval` writes, as the JAX CLI reads `model_path.orbax`
+    from its own)."""
+    import os.path as osp
+
+    import torch
     params = model.init(generator, image_shape=image_shape)
     if not model_path:
         print('WARNING: no --model given; evaluating random weights')
         return params, 'random'
+    if not model_path.endswith('.npz') and osp.exists(model_path + '.pt'):
+        saved = torch.load(model_path + '.pt', map_location='cpu',
+                           weights_only=False)['params']
+        if set(saved) != set(params):
+            raise ValueError(f'{model_path}.pt: its params are not those of '
+                             f'--net {net} with this dataset\'s classes')
+        print(f'Restored the params of snapshot {model_path}.pt')
+        return {k: saved[k].to(v.dtype) for k, v in params.items()}, \
+            model_path
     from tpudenoise_torch.models.convert import (load_pretrained,
                                                  merge_pretrained)
     return merge_pretrained(params, load_pretrained(model_path, net)), \

@@ -110,7 +110,8 @@ def _main(args, device):
     pprint.pprint(cfg)
     np.random.seed(cfg.RNG_SEED)
 
-    imdb_obj, roidb = combined_roidb(args.imdb_name, args.noise, cfg)
+    imdb_obj, roidb = combined_roidb(args.imdb_name, args.noise, cfg,
+                                     device=device)
     print(f'{len(roidb)} roidb entries')
     output_dir = get_output_dir(imdb_obj.name, args.tag, cfg)
     tb_dir = get_output_tb_dir(imdb_obj.name, args.tag, cfg)
@@ -118,7 +119,8 @@ def _main(args, device):
     # the validation roidb without flips
     orig_flip = cfg.TRAIN.USE_FLIPPED
     cfg.TRAIN.USE_FLIPPED = False
-    _, valroidb = combined_roidb(args.imdbval_name, args.noise, cfg)
+    _, valroidb = combined_roidb(args.imdbval_name, args.noise, cfg,
+                                 device=device)
     cfg.TRAIN.USE_FLIPPED = orig_flip
     print(f'{len(valroidb)} validation roidb entries')
 

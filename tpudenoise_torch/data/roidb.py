@@ -1,7 +1,10 @@
 """roidb preparation for training (counterpart of `tpudenoise/data/
 roidb.py`): image path and size, max-overlap stats and the noise string
 stamped into every entry; flips; the filter of entries with neither fg
-nor bg; and the '+'-joined multi-dataset roidb.
+nor bg; and the '+'-joined multi-dataset roidb.  A merged roidb (the gt
+rows, then the rpn proposals of `TRAIN.PROPOSAL_METHOD` 'rpn') goes
+through the same steps: its proposal rows join the max-overlap stats and
+so the filter, and the loader keeps only its gt rows (gt_classes != 0).
 
 Image sizes come from `utils.image_io.image_hw` (the `.npy` header, or
 PIL for a JPEG, imported only then): the GPU machine has no PIL.
@@ -80,15 +83,17 @@ class CombinedImdb:
 
 
 def combined_roidb(imdb_names: str, noise: str, config=None,
-                   training: bool = True):
+                   training: bool = True, device='cuda'):
     """(dataset, roidb) of one name or of '+'-joined names (their roidbs
-    concatenated, the first's classes)."""
+    concatenated, the first's classes); a proposal method's overlaps run
+    on device."""
     from tpudenoise_torch.data.factory import get_imdb
     C = config or default_cfg
 
     def get_roidb(name):
         obj = get_imdb(name, C)
         print(f'Loaded dataset `{obj.name}`')
+        obj.device = device
         obj.set_proposal_method(C.TRAIN.PROPOSAL_METHOD)
         if training:
             return obj, get_training_roidb(obj, noise, C)

@@ -237,3 +237,32 @@ def write_coco(root: str, shapes, image_set: str = 'minival',
               'w') as f:
         json.dump(dataset, f)
     return pdir, dataset
+
+
+# vgg16's conv stages: convs a stage, output channels
+VGG16_STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+
+
+def write_vgg16_checkpoint(prefix: str, seed: int = 0) -> None:
+    """A seeded full-width vgg16 in tf-slim's scopes (`vgg_16/convS/
+    convS_R/{weights, biases}`, fc6 (7, 7, 512, 4096), fc7 (1, 1, 4096,
+    4096)) as a V2 checkpoint at prefix, written by the port's writer:
+    a source `cli.convert --net vgg16` reads."""
+    from tpudenoise_torch.models.tf_checkpoint import write_checkpoint
+    rng = np.random.default_rng(seed)
+    scale = np.float32(0.01)
+    arrays, cin = {}, 3
+    for s, (reps, cout) in enumerate(VGG16_STAGES, start=1):
+        for r in range(1, reps + 1):
+            pre = f'vgg_16/conv{s}/conv{s}_{r}'
+            arrays[pre + '/weights'] = rng.standard_normal(
+                (3, 3, cin, cout), np.float32) * scale
+            arrays[pre + '/biases'] = rng.standard_normal(cout, np.float32)
+            cin = cout
+    for name, shape in (('fc6', (7, 7, 512, 4096)),
+                        ('fc7', (1, 1, 4096, 4096))):
+        arrays[f'vgg_16/{name}/weights'] = rng.standard_normal(
+            shape, np.float32) * scale
+        arrays[f'vgg_16/{name}/biases'] = rng.standard_normal(4096,
+                                                              np.float32)
+    write_checkpoint(prefix, arrays)

@@ -5,8 +5,12 @@ A copy of `tpudenoise/data/voc_like.py` (`VocStyleDataset`, `rrData`,
 (`data/imdb.py`): XML annotations, txt image sets, the gt roidb (pickled
 under DATA_DIR/cache), per-class VOC results files and the python AP
 evaluation (rrData sweeps IoU 0.50:0.05:0.95, ref rrData.py:246-269;
-pascal_voc evaluates at 0.5).  Left out: rpn/proposal roidbs, the MATLAB
-bridge and the metrics logger; `_do_python_eval` prints the APs.
+pascal_voc evaluates at 0.5), and the rpn roidb: `config['rpn_file']`, a
+pickled list of (N, 4) proposal boxes per image, turned into roidb rows
+by `create_roidb_from_box_list` and, for an image set other than `test`,
+merged under the gt rows.  Left out: the MATLAB bridge
+(`config['matlab_eval']` stays False) and the metrics logger;
+`_do_python_eval` prints the APs.
 
 `pixel_dir=...` points `image_path_at` at `.npy` pixels that
 `tpudenoise_torch.data.cache_pixels` decoded from the JPEGs, which the GPU
@@ -48,7 +52,8 @@ class VocStyleDataset(imdb):
         self._salt = str(uuid.uuid4())
         self._comp_id = 'comp4'
         self.config = {'cleanup': True, 'use_salt': True,
-                       'use_diff': False}
+                       'use_diff': False, 'matlab_eval': False,
+                       'rpn_file': None}
         self._image_index = self._load_image_set_index()
         self._roidb_handler = self.gt_roidb
 
@@ -63,6 +68,22 @@ class VocStyleDataset(imdb):
         with open(cache_file, 'wb') as f:
             pickle.dump(roidb, f, pickle.HIGHEST_PROTOCOL)
         return roidb
+
+    def rpn_roidb(self):
+        """The rpn proposals' roidb, under the gt rows except for the
+        `test` image set."""
+        if self._image_set != 'test':
+            gt = self.gt_roidb()
+            return imdb.merge_roidbs(gt, self._load_rpn_roidb(gt))
+        return self._load_rpn_roidb(None)
+
+    def _load_rpn_roidb(self, gt_roidb):
+        filename = self.config['rpn_file']
+        assert filename and osp.exists(filename), \
+            f'rpn data not found at: {filename}'
+        with open(filename, 'rb') as f:
+            box_list = pickle.load(f)
+        return self.create_roidb_from_box_list(box_list, gt_roidb)
 
     def _load_annotation(self, index):
         """VOC XML -> roidb entry with 0-based boxes."""

@@ -10,6 +10,8 @@
 * `nms_dets`: the host-facing form of the reference's `nms_py` for one
   (N, 5) dets array (`cli/reval.py`), through `nms_fixpoint` on the
   device the caller names.
+* `nms_py`: the reference's numpy greedy NMS itself (`cli/reval.py
+  --device cpu` with `cfg.USE_NATIVE_NMS` off).
 
 The keep set is the greedy one: alive[j] = valid[j] &
 !any_{i<j}(M[i, j] & alive[i]).  On the card `greedy_keep` walks the words
@@ -256,11 +258,11 @@ def nms_fixpoint_packed(boxes: torch.Tensor, scores: torch.Tensor,
     then kernel 3 and the walk (their plain versions on CPU tensors)."""
     lead, n_in = boxes.shape[:-2], boxes.shape[-2]
     n = -(-n_in // _PACK) * _PACK
-    boxes = boxes.reshape(-1, n_in, 4)
-    scores = scores.reshape(-1, n_in)
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
     valid = valid.expand(*lead, n_in).reshape(-1, n_in)
+    boxes = boxes.reshape(-1, n_in, 4)
+    scores = scores.reshape(-1, n_in)
     pad = n - n_in
     boxes = torch.nn.functional.pad(boxes.to(torch.float32), (0, 0, 0, pad))
     scores = torch.nn.functional.pad(scores.to(torch.float32), (0, pad))
@@ -315,3 +317,28 @@ def nms_dets(dets: np.ndarray, thresh: float, device='cuda') -> list:
     t = torch.from_numpy(np.ascontiguousarray(dets)).to(device)
     keep, mask = nms_fixpoint(t[None, :, :4], t[None, :, 4], thresh, n)
     return keep[mask].tolist()
+
+
+def nms_py(dets: np.ndarray, thresh: float) -> list:
+    """The reference's pure-numpy greedy NMS (`py_cpu_nms`) over (N, 5)
+    [x1, y1, x2, y2, score] rows: the kept indices in greedy order.  Tied
+    scores go in the order `argsort()[::-1]` leaves them."""
+    x1, y1, x2, y2 = dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3]
+    scores = dets[:, 4]
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = scores.argsort()[::-1]
+    keep = []
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        xx1 = np.maximum(x1[i], x1[order[1:]])
+        yy1 = np.maximum(y1[i], y1[order[1:]])
+        xx2 = np.minimum(x2[i], x2[order[1:]])
+        yy2 = np.minimum(y2[i], y2[order[1:]])
+        w = np.maximum(0.0, xx2 - xx1 + 1)
+        h = np.maximum(0.0, yy2 - yy1 + 1)
+        inter = w * h
+        ovr = inter / (areas[i] + areas[order[1:]] - inter)
+        inds = np.where(ovr <= thresh)[0]
+        order = order[inds + 1]
+    return keep

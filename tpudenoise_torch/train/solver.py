@@ -206,20 +206,20 @@ class Solver:
                                  for k in ('im_info', 'gt_boxes', 'gt_mask')}}
 
     def _log_gt_image_summary(self, batch, it: int):
-        """The first image with its gt boxes (pixel means added back,
-        BGR -> RGB, the bucket pad cropped) as an image summary."""
+        """The first image with its gt boxes as an image summary: pixel
+        means added back, the bucket pad cropped, BGR -> RGB, the boxes
+        drawn by `utils.visualization.draw_bounding_boxes` (class-coloured
+        outlines and labels), as the JAX solver draws them."""
         if not self.logger.active_sinks:
             return
-        from tpudenoise_torch.cli.demo import draw_box
+        from tpudenoise_torch.utils.visualization import draw_bounding_boxes
         img = (batch['image'][0].cpu().numpy()
                + np.asarray(self.cfg.PIXEL_MEANS, np.float32).reshape(3))
         h, w = (int(v) for v in batch['im_info'][0, :2].tolist())
-        img = np.ascontiguousarray(
-            np.clip(np.round(img[:h, :w]), 0, 255).astype(np.uint8))
         gt = batch['gt_boxes'][0][batch['gt_mask'][0]].cpu().numpy()
-        for box in gt:
-            draw_box(img, box[:4])
-        self.logger.log_image('train/gt_image', img[..., ::-1], step=it)
+        self.logger.log_image('train/gt_image',
+                              draw_bounding_boxes(img[:h, :w, ::-1], gt),
+                              step=it)
 
     def _log_histogram_summaries(self, state, batch, it: int):
         """TRAIN/ histograms of the parameters, SCORE/ of one test-mode
